@@ -2,8 +2,10 @@
 // logsumexp), dQ, and dK/dV, bound through a plain C interface (ctypes).
 //
 // Replaces the four Pallas TPU kernels of byteps_tpu/ops/flash_attention.py:
-//   fa_fwd_kernel<T, D, true>   <- _fa_kernel via _flash_fwd_impl(return_lse=True)
-//   fa_fwd_kernel<T, D, false>  <- _kernel_nolse (forward with no residuals)
+//   fa_fwd_wgmma_kernel<T, D, true>   bf16/f16 <- _fa_kernel via
+//   fa_fwd_kernel<float, D, true>     f32          _flash_fwd_impl(return_lse=True)
+//   fa_fwd_wgmma_kernel<T, D, false>  bf16/f16 <- _kernel_nolse (forward with
+//   fa_fwd_kernel<float, D, false>    f32          no residuals)
 //   fa_bwd_dq_kernel<T, D>      <- _fa_bwd_dq_kernel (+ _bwd_recompute/_bwd_mask/_bwd_live)
 //   fa_bwd_dkv_kernel<T, D>     <- _fa_bwd_dkv_kernel
 //
@@ -11,21 +13,42 @@
 // row-major (the public layout; no transposes around the kernels); lse and
 // D = rowsum(dO * O) are f32 [batch, heads, seq_q].
 //
-// What bounds it on the H100. At GPT-2 small's shapes (b 8, s 512, h 12,
-// d 64, bf16, causal) the forward reads q, k, v and writes o: ~25 MB, about
-// 7.5 us at 3.35 TB/s, against ~3.2 GFLOP, 3.3 us at the bf16 tensor-core
-// peak, so the least time is set by bytes. This first version does every
-// product as f32 FMAs on the CUDA cores from shared memory (no mma.sync,
-// no wgmma): the f32 FMA peak (67 TFLOP/s) makes ~48 us the floor for the
-// causal forward, and shared-memory bandwidth makes it slower still. That
-// is the price of a kernel whose numerics are simple to hold against the
-// plain version: every product of two inputs is exact in f32, sums are f32.
-// What the design does about the bound it has: each 64-row Q tile stays in
-// shared memory while K/V tiles stream past it, so q, k and v are read once
-// per tile pair and the [s, s] score matrix never reaches device memory;
-// causal and sliding-window loop bounds are computed per tile, so masked
-// tiles cost nothing and the window's work scales with seq * window.
-// wgmma with TMA-fed tiles is the redesign this leaves for later.
+// What bounds the forward on the H100. At GPT-2 small's shapes (b 8, s 512,
+// h 12, d 64, bf16, causal) it reads q, k, v and writes o: ~25 MB, about
+// 7.5 us at 3.35 TB/s, against ~3.2 GFLOP of products, 3.3 us at the bf16
+// tensor-core peak, so the least time is set by bytes. The bf16/f16
+// forward (fa_fwd_wgmma_kernel) is built for that:
+// - one warpgroup per 64 query rows; S = Q K^T and O += P V are wgmma
+//   products on the tensor cores with f32 accumulators in registers;
+// - the Q tile is loaded once per block and K/V tiles stream through a
+//   two-stage ring in shared memory, each copied by TMA in its natural
+//   layout (one box of a [b, s, h, d] tensor map, swizzled for wgmma, rows
+//   past the sequence zero-filled) and signalled through an mbarrier, so
+//   the next tile's copy overlaps this tile's two products and no thread
+//   spends instructions on addresses;
+// - the online softmax runs on the accumulator fragment itself (a row is
+//   held by the four threads of a quad: two shuffles reduce it), in base 2
+//   (one FMA and one ex2 a probability), and P, rounded to T, is repacked
+//   in registers as the A operand of P V: the [64, 64] probabilities never
+//   touch shared memory;
+// - masks are evaluated only on tiles that cross the diagonal, the window
+//   edge or the sequence end, as two compares against per-row column
+//   bounds; the causal and window loop bounds are per tile, and the
+//   heaviest causal q tiles are launched first;
+// - the softmax, not the tensor cores or the copies, sets the pace, so the
+//   kernel keeps to 95-ish registers and 42 KB of shared memory at d 64:
+//   five blocks share an SM and hide each other's waits. Issuing the next
+//   tile's S before this tile's softmax (two S fragments in registers)
+//   needs ~140 registers, leaves room for three blocks, and measured
+//   slower.
+// The f32 forward (fa_fwd_kernel) and the backward kernels do every product
+// as f32 FMAs on the CUDA cores from shared memory: TF32 would not hold
+// f32 inputs to f32 accuracy, and the f32 FMA peak (67 TFLOP/s) and
+// shared-memory bandwidth set their pace. Every product of two bf16/f16
+// inputs is exact in f32 on either path, so the kernels differ from the
+// plain version in the order of their f32 sums and, on the tensor-core
+// path, in ex2's last bits (a relative 1e-6 in p, far below its rounding to
+// bf16 or f16).
 //
 // Conventions kept from the TPU kernels: causal mask top-left aligned
 // (q_pos >= k_pos, both from 0, also when seq_q != seq_k); masked logits
@@ -37,6 +60,11 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -211,6 +239,229 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / safe_l);
     if (LSE && tx == 0) lse[(size_t)bh * Sq + qp] = l[i] == 0.f ? kBig : m[i] + logf(safe_l);
+  }
+}
+
+// --- the bf16/f16 forward on the tensor cores --------------------------------
+
+constexpr int WG = 128;     // threads of the tensor-core forward: one warpgroup
+constexpr int STAGES = 2;   // K/V tiles in flight in shared memory
+
+// A [64 rows][D] tile in shared memory: panels of DP <= 64 columns (rows of
+// 32, 64 or 128 bytes, in the swizzle of that width), side by side.
+template <int D> struct Tile {
+  static constexpr int DP = D < 64 ? D : 64;  // columns per panel
+  static constexpr int ROW = DP * 2;          // bytes per panel row
+  static constexpr int PANEL = 64 * ROW;      // bytes per panel
+  static constexpr int BYTES = D / DP * PANEL;
+  static constexpr uint32_t SWZ = hopper::swizzle_code(ROW);
+  // tiles + 1024 bytes to align them to the swizzle atom + the mbarriers
+  static constexpr size_t SMEM = (1 + 2 * STAGES) * BYTES + 1024 + 8 * (1 + 2 * STAGES);
+};
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// One tile of the online softmax on this thread's S fragment: s[i*4 + r*2
+// + e] is row r, key column c0 + 8i + e of the tile, live when it lies in
+// [lo[r], hi[r]] (with MASK; every element is live without). The running
+// max m is kept in base 2 (max s * scale * log2 e), so each p is one FMA
+// and one ex2; masked elements get logit -1e30 and p = 0. On return s holds
+// p (unrounded f32).
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], const int (&lo)[2],
+                                             const int (&hi)[2], float scale_log2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[i * 4 + r * 2 + e];
+        if (MASK && !(8 * i + e >= lo[r] && 8 * i + e <= hi[r])) x = kNegInf;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * scale_log2);
+    corr[r] = exp2_approx(m[r] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[i * 4 + r * 2 + e];
+        x = !MASK || (8 * i + e >= lo[r] && 8 * i + e <= hi[r])
+                ? exp2_approx(fmaf(x, scale_log2, -m_new))
+                : 0.f;
+        rs += x;
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[r] = l[r] * corr[r] + rs;
+    m[r] = m_new;
+  }
+}
+
+// Thread layout of the wgmma fragments: warp w of the warpgroup holds tile
+// rows 16w + lane/4 and 16w + lane/4 + 8; element [i*4 + r*2 + e] of an
+// m64nN accumulator is row (r), column 8i + 2*(lane%4) + e.
+template <typename T, int D, bool LSE>
+__global__ void __launch_bounds__(WG)
+fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                    float* __restrict__ lse, int H, int Sq, int Sk, float scale, int causal,
+                    int window) {
+  using G = Tile<D>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + G::BYTES;            // stage st at sK + st * G::BYTES
+  const uint32_t sV = sK + STAGES * G::BYTES;
+  const uint32_t bar_q = sV + STAGES * G::BYTES;
+  const uint32_t bar_k = bar_q + 8;             // stage st at bar_k + 8 * st
+  const uint32_t bar_v = bar_k + 8 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // most live K tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int nk = (Sk + BK - 1) / BK;
+  int kt_lo = 0, kt_hi = nk;
+  if (causal) {
+    kt_hi = min(nk, (min(q0 + BQ, Sq) - 1) / BK + 1);
+    if (window > 0) kt_lo = max(0, q0 - (window - 1)) / BK;
+  }
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Issued by thread 0: K and V tile kt into ring stage st.
+  auto load_kv = [&](int kt, int st) {
+    mbar_expect_tx(bar_k + 8 * st, G::BYTES);
+    for (int p = 0; p < D / G::DP; ++p)
+      tma_load_4d(sK + st * G::BYTES + p * G::PANEL, &tk, bar_k + 8 * st, p * G::DP, h, kt * BK,
+                  b);
+    mbar_expect_tx(bar_v + 8 * st, G::BYTES);
+    for (int p = 0; p < D / G::DP; ++p)
+      tma_load_4d(sV + st * G::BYTES + p * G::PANEL, &tv, bar_v + 8 * st, p * G::DP, h, kt * BK,
+                  b);
+  };
+  if (tid == 0 && kt_lo < kt_hi) {
+    mbar_expect_tx(bar_q, G::BYTES);
+    for (int p = 0; p < D / G::DP; ++p)
+      tma_load_4d(sQ + p * G::PANEL, &tq, bar_q, p * G::DP, h, q0, b);
+    load_kv(kt_lo, 0);
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int qr = q0 + warp * 16 + (lane >> 2);  // query position of this thread's row 0
+  const int c0 = 2 * (lane & 3);                // this thread's first column in 8
+  const float scale_log2 = scale * kLog2e;
+  int lo[2], hi[2];                             // live columns of a masked tile
+
+  if (kt_lo < kt_hi) mbar_wait(bar_q, 0);
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int it = kt - kt_lo, st = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    // The other stage was last read in the previous tile, which every warp
+    // has finished (the barrier at the end of the loop).
+    if (tid == 0 && kt + 1 < kt_hi) load_kv(kt + 1, (it + 1) % STAGES);
+    const int k0 = kt * BK;
+
+    // The first step overwrites s (accumulate 0); zeroing it anyway keeps
+    // ptxas at ~95 registers at d 64 (108-111 without), five blocks an SM.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    mbar_wait(bar_k + 8 * st, parity);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {  // 16 columns of d a step
+      const uint32_t off = (j / (G::DP / 16)) * G::PANEL + (j % (G::DP / 16)) * 32;
+      WgmmaSS<T, 64>::run(s, smem_desc(sQ + off, 16, 8 * G::ROW, G::SWZ),
+                          smem_desc(sK + st * G::BYTES + off, 16, 8 * G::ROW, G::SWZ), j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    float corr[2];
+    const bool full =
+        k0 + BK <= Sk && q0 + BQ <= Sq &&
+        (!causal || (k0 + BK - 1 <= q0 && (window <= 0 || q0 + BQ - 1 - k0 < window)));
+    if (full) {
+      softmax_tile<false>(s, m, l, corr, lo, hi, scale_log2);
+    } else {
+      // live columns of each row, relative to this thread's column c0:
+      // key < Sk, and with causal key <= query and query - key < window
+      // (live() as bounds); none past the last query
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = qr + 8 * r;
+        hi[r] = (qp < Sq ? (causal ? min(qp, Sk - 1) : Sk - 1) : -1) - k0 - c0;
+        lo[r] = (causal && window > 0 ? qp - window + 1 : 0) - k0 - c0;
+      }
+      softmax_tile<true>(s, m, l, corr, lo, hi, scale_log2);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // P rounded to T (p.astype(v.dtype)) as the A fragment of P V: keys
+    // 16j .. 16j+15 are accumulator chunks 2j and 2j+1.
+    uint32_t pa[16];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[4 * j + x] = pack2<T>(s[8 * j + 2 * x], s[8 * j + 2 * x + 1]);
+
+    mbar_wait(bar_v + 8 * st, parity);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)  // 16 keys a step
+      WgmmaRS<T, D>::run(acc, pa + 4 * j,
+                         smem_desc(sV + st * G::BYTES + j * 16 * G::ROW, G::PANEL, 8 * G::ROW,
+                                   G::SWZ));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(pa);
+    __syncthreads();  // stage st is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr + 8 * r;
+    if (qp >= Sq) continue;
+    const float safe_l = l[r] == 0.f ? 1.f : l[r];
+    T* orow = o + ((size_t)(b * Sq + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+          pack2<T>(acc[i * 4 + r * 2] / safe_l, acc[i * 4 + r * 2 + 1] / safe_l);
+    if (LSE && (lane & 3) == 0)
+      lse[(size_t)bh * Sq + qp] = l[r] == 0.f ? kBig : m[r] * kLn2 + logf(safe_l);
   }
 }
 
@@ -458,27 +709,67 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
+// Raises a kernel's dynamic shared-memory limit once per device: the first
+// launch of each instantiation on a device pays for it, later ones do not.
+struct Prepared {
+  std::atomic<uint64_t> devices{0};  // bit d: done on device d
+
+  template <typename Kernel>
+  cudaError_t operator()(Kernel kernel, size_t smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const uint64_t bit = 1ull << (dev & 63);
+    if (devices.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) devices.fetch_or(bit, std::memory_order_release);
+    return err;
+  }
+};
 
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                 int Sq, int Sk, float scale, int causal, int window, cudaStream_t stream) {
-  constexpr int LD = D + 1;
-  const size_t smem = sizeof(float) * (BQ * LD + 2 * BK * LD + BQ * (BK + 1));
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  static Prepared with_lse, without_lse;
   cudaError_t err;
-  if (lse != nullptr) {
-    if ((err = prepare(fa_fwd_kernel<T, D, true>, smem)) != cudaSuccess) return err;
-    fa_fwd_kernel<T, D, true><<<grid, NT, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, H, Sq, Sk, scale, causal,
-        window);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int LD = D + 1;
+    const size_t smem = sizeof(float) * (BQ * LD + 2 * BK * LD + BQ * (BK + 1));
+    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+    if (lse != nullptr) {
+      if ((err = with_lse(fa_fwd_kernel<T, D, true>, smem)) != cudaSuccess) return err;
+      fa_fwd_kernel<T, D, true><<<grid, NT, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, H, Sq, Sk, scale, causal,
+          window);
+    } else {
+      if ((err = without_lse(fa_fwd_kernel<T, D, false>, smem)) != cudaSuccess) return err;
+      fa_fwd_kernel<T, D, false><<<grid, NT, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (T*)o, nullptr, H, Sq, Sk, scale, causal,
+          window);
+    }
   } else {
-    if ((err = prepare(fa_fwd_kernel<T, D, false>, smem)) != cudaSuccess) return err;
-    fa_fwd_kernel<T, D, false><<<grid, NT, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, nullptr, H, Sq, Sk, scale, causal, window);
+    using G = Tile<D>;
+    const CUtensorMapDataType dt = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    CUtensorMap tq, tk, tv;
+    if ((err = hopper::encode_bshd(&tq, q, dt, B, Sq, H, D, G::DP, BQ)) != cudaSuccess ||
+        (err = hopper::encode_bshd(&tk, k, dt, B, Sk, H, D, G::DP, BK)) != cudaSuccess ||
+        (err = hopper::encode_bshd(&tv, v, dt, B, Sk, H, D, G::DP, BK)) != cudaSuccess)
+      return err;
+    // x walks (batch, head) fastest, so each wave takes one q tile of every
+    // head before the next, lighter one (the kernel reverses y).
+    const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+    if (lse != nullptr) {
+      if ((err = with_lse(fa_fwd_wgmma_kernel<T, D, true>, G::SMEM)) != cudaSuccess) return err;
+      fa_fwd_wgmma_kernel<T, D, true><<<grid, WG, G::SMEM, stream>>>(
+          tq, tk, tv, (T*)o, (float*)lse, H, Sq, Sk, scale, causal, window);
+    } else {
+      if ((err = without_lse(fa_fwd_wgmma_kernel<T, D, false>, G::SMEM)) != cudaSuccess)
+        return err;
+      fa_fwd_wgmma_kernel<T, D, false><<<grid, WG, G::SMEM, stream>>>(
+          tq, tk, tv, (T*)o, nullptr, H, Sq, Sk, scale, causal, window);
+    }
   }
   return cudaGetLastError();
 }
@@ -490,8 +781,9 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
   constexpr int LD = D + 1;
   const size_t smem = sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * (BK + 1));
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  static Prepared prepared;
   cudaError_t err;
-  if ((err = prepare(fa_bwd_dq_kernel<T, D>, smem)) != cudaSuccess) return err;
+  if ((err = prepared(fa_bwd_dq_kernel<T, D>, smem)) != cudaSuccess) return err;
   fa_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
       (const float*)dvec, (T*)dq, H, Sq, Sk, scale, causal, window);
@@ -506,8 +798,9 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   const size_t smem =
       sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BK * (BQ + 1) + 2 * BQ);
   const dim3 grid((Sk + BK - 1) / BK, B * H);
+  static Prepared prepared;
   cudaError_t err;
-  if ((err = prepare(fa_bwd_dkv_kernel<T, D>, smem)) != cudaSuccess) return err;
+  if ((err = prepared(fa_bwd_dkv_kernel<T, D>, smem)) != cudaSuccess) return err;
   fa_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
       (const float*)dvec, (T*)dk, (T*)dv, H, Sq, Sk, scale, causal, window);

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List
 
 from byteps_tpu_torch.core.build import install, is_fresh
 
@@ -47,10 +47,18 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def inputs(name: str) -> List[str]:
+    """Files a build of ``csrc/<name>.cu`` depends on: the source and every
+    header beside it (``csrc/*.cuh``), so an edited header rebuilds."""
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cuh"))
+    return [os.path.join(CSRC, f"{name}.cu"), *headers]
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless the library is fresh: newer than
-    the source and built by the same ``nvcc`` with the same flags (the
-    core's ``is_fresh`` rule).
+    the source and its headers (``inputs``) and built by the same ``nvcc``
+    with the same flags (the core's ``is_fresh`` rule).
 
     The compiler's report (registers, shared memory and spills of every
     kernel, from ``-Xptxas -v``) is kept beside the library as
@@ -60,7 +68,7 @@ def build(name: str) -> str:
     out = lib_path(name)
     compiler = nvcc()
     key = " ".join([os.path.realpath(compiler), *NVCC_FLAGS])
-    if is_fresh(out, [src], key):
+    if is_fresh(out, inputs(name), key):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"

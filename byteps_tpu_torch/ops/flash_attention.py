@@ -11,8 +11,11 @@ Four kernels, one per TPU kernel (``csrc/flash_attention.cu``):
 ============  =====================================  ====================
 wrapper       CUDA kernel                            replaces
 ============  =====================================  ====================
-``fwd_lse``   ``fa_fwd_kernel<T, D, true>``          ``_fa_kernel``
-``fwd``       ``fa_fwd_kernel<T, D, false>``         ``_kernel_nolse``
+``fwd_lse``   ``fa_fwd_wgmma_kernel<T, D, true>``    ``_fa_kernel``
+              (bf16/f16, tensor cores),
+              ``fa_fwd_kernel<float, D, true>``
+``fwd``       ``fa_fwd_wgmma_kernel<T, D, false>``,  ``_kernel_nolse``
+              ``fa_fwd_kernel<float, D, false>``
 ``bwd_dq``    ``fa_bwd_dq_kernel<T, D>``             ``_fa_bwd_dq_kernel``
 ``bwd_dkv``   ``fa_bwd_dkv_kernel<T, D>``            ``_fa_bwd_dkv_kernel``
 ============  =====================================  ====================

@@ -7,13 +7,16 @@ Phases, each of which raises on failure:
 
 1. build: the flash-attention kernels (nvcc, sm_90a) and the C++ PS core
    (g++), both from this checkout's sources, in parallel, into
-   build/byteps_tpu_torch/;
+   build/byteps_tpu_torch/; the SASS of each bf16/f16 forward
+   instantiation must hold HGMMA (wgmma) instructions;
 2. kernels: each of the four CUDA kernels against its plain PyTorch
    version on the card, at GPT-2 small's attention shapes (b 8, s 512,
-   h 12, d 64, bf16, causal) and on an unaligned f32 case (s 600), a
-   rectangular causal case (100 x 260) and a sliding-window case (s 300,
-   window 64); each timed beside its plain version, PyTorch's
-   scaled_dot_product_attention, and its bound;
+   h 12, d 64, bf16, causal), on f32 cases (unaligned s 600, rectangular
+   causal 100 x 260, sliding window 64 at s 300) and on the same shape
+   classes in bf16 and f16 (plus non-causal 96 x 96); at GPT-2's shapes
+   each timed beside its plain version, PyTorch's
+   scaled_dot_product_attention, and its bound (device time from CUDA
+   graph replays, kernel and SDPA forward in turns over 5 windows);
 3. collective mode: GPT2Small(attn_impl="flash") at full width trains a
    few steps of 8 x 512 tokens through init -> make_train_step with
    AdamW, then runs one evaluation forward under no_grad; the launch
@@ -86,9 +89,52 @@ def build_all():
     return results
 
 
+def forward_sass():
+    """Registers, spills (the ptxas report) and HGMMA instructions (the
+    SASS, by cuobjdump) of each tensor-core forward instantiation; raises
+    if one has no HGMMA, i.e. does not run on the tensor cores."""
+    import re
+
+    from byteps_tpu_torch.ops import _cuda_lib
+    with open(os.path.join(_cuda_lib.BUILD_DIR,
+                           "flash_attention.nvcc.log")) as f:
+        report = f.read()
+    kernels = {}
+    for m in re.finditer(
+            r"Compiling entry function '(\w*fa_fwd_wgmma_kernel\w*)'.*?"
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+            r"Used (\d+) registers", report, re.S):
+        kernels[m.group(1)] = {"registers": int(m.group(4)),
+                               "spill_bytes": int(m.group(2))
+                               + int(m.group(3)), "hgmma": 0}
+    cuobjdump = os.path.join(os.path.dirname(_cuda_lib.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           _cuda_lib.lib_path("flash_attention")],
+                          capture_output=True, text=True, check=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn in kernels and "HGMMA" in line:
+            kernels[fn]["hgmma"] += 1
+    named = {}
+    for fn, v in kernels.items():
+        m = re.search(r"fa_fwd_wgmma_kernelI(\w+?)Li(\d+)ELb([01])E", fn)
+        dtype = "bfloat16" if "bfloat16" in m.group(1) else "float16"
+        named[f"{dtype} d{m.group(2)} lse={m.group(3)}"] = v
+    if len(named) != 16 or not all(v["hgmma"] > 0 for v in named.values()):
+        raise AssertionError(f"tensor-core forward: expected 16 "
+                             f"instantiations with HGMMA, got {named}")
+    log("tensor-core forward (ptxas, SASS):", json.dumps(named))
+    return named
+
+
 # --- phase 2: kernels against their plain versions ---------------------------
 
 def _time_ms(fn, iters=20, warmup=3):
+    """ms per call over one window of ``iters`` calls issued from Python:
+    the card's time, or the host's where the host is slower."""
     import torch
     for _ in range(warmup):
         fn()
@@ -101,6 +147,41 @@ def _time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_alternating(fns, windows=5, iters=20):
+    """Device ms per call of each function: ``iters`` calls are captured in
+    one CUDA graph per function, so the host's launch cost is out of the
+    window, and the graphs are replayed in turns (a, b, a, b, ...) for
+    ``windows`` windows. Returns {name: (median, min, max)}."""
+    import torch
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(iters):
+                fn()
+    times = {name: [] for name in fns}
+    for _ in range(windows):
+        for name, g in graphs.items():
+            g.replay()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+    del graphs
+    return {name: (sorted(t)[len(t) // 2], min(t), max(t))
+            for name, t in times.items()}
 
 
 def _live_pairs(s_q, s_k, causal, window):
@@ -174,9 +255,20 @@ def compare(dtype, what, got, want, mag):
 CASES = [
     # name, b, s_q, s_k, h, d, dtype, causal, window
     ("gpt2", BATCH, SEQ, SEQ, 12, 64, "bfloat16", True, None),
+    # f32: the FMA forward
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
     ("window64", 1, 300, 300, 2, 16, "float32", True, 64),
+] + [
+    # bf16 / f16: the tensor-core forward on every shape class
+    (f"{name}_{dtype}", b, s_q, s_k, h, d, dtype, causal, window)
+    for dtype in ("bfloat16", "float16")
+    for (name, b, s_q, s_k, h, d, causal, window) in [
+        ("unaligned", 1, 600, 600, 2, 32, True, None),
+        ("rect_causal", 1, 100, 260, 2, 16, True, None),
+        ("full", 1, 96, 96, 2, 32, False, None),
+        ("window64", 1, 300, 300, 2, 128, True, 64),
+    ]
 ]
 
 
@@ -254,9 +346,13 @@ def kernel_phase():
             "bwd_dkv": lambda: fa._bwd_dkv_reference(*args),
         }
         qt, kt_, vt = (t.transpose(1, 2) for t in (q, k, v))
-        with torch.no_grad():
-            sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt_, vt, is_causal=True))
+
+        def sdpa():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt_, vt,
+                                                      is_causal=True)
+        # device time: each kernel and SDPA's forward in turns, 5 windows
+        dev = _time_alternating({**kt, "sdpa_fwd": sdpa})
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt_, vt))
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         gout = do.transpose(1, 2)
@@ -267,17 +363,26 @@ def kernel_phase():
             o_ = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
             torch.autograd.grad(o_, (qg, kg, vg), gout)
         sdpa_both = _time_ms(sdpa_fwd_bwd)
-        library = {"fwd_lse": sdpa_fwd, "fwd": sdpa_fwd,
-                   "bwd_dq": sdpa_bwd, "bwd_dkv": sdpa_bwd}
+        # SDPA's backward is timed eagerly, in one window (no spread)
+        library = {"fwd_lse": dev["sdpa_fwd"], "fwd": dev["sdpa_fwd"],
+                   "bwd_dq": (sdpa_bwd, None), "bwd_dkv": (sdpa_bwd, None)}
+        pairs = b * h * _live_pairs(s_q, s_k, causal, window)
+        ops_per_pair = {"fwd_lse": 4, "fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}
         for kname in kt:
             bound, by = _bound_ms(kname, b, h, s_q, s_k, d, elem, causal,
                                   window, dtype)
-            ms = _time_ms(kt[kname])
+            ms, ms_min, ms_max = dev[kname]
             report[kname] = {
-                "ms": ms, "kernel_ms": ms,
+                "ms": ms, "ms_spread": [ms_min, ms_max],
+                "eager_ms": _time_ms(kt[kname]),
                 "plain_ms": _time_ms(pt[kname], iters=5, warmup=1),
                 "bound_ms": bound, "bound_by": by,
-                "library_ms": library[kname],
+                "library_ms": library[kname][0],
+                "library_ms_spread": (list(library[kname][1:])
+                                      if library[kname][1] else None),
+                "tflops": ops_per_pair[kname] * d * pairs / (ms * 1e-3)
+                / 1e12,
+                "bound_share": bound / ms,
             }
         report["sdpa_fwd_bwd_ms"] = sdpa_both
         del out, qg, kg, vg
@@ -373,7 +478,7 @@ def _profile_step(step, model, tokens):
     families = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
     for name, us in by_name.items():
         low = name.lower()
-        if "fa_fwd_kernel" in name or "fa_bwd_" in name:
+        if "fa_fwd_" in name or "fa_bwd_" in name:
             families["flash_attention"] += us
         elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
             families["matmul"] += us
@@ -381,8 +486,12 @@ def _profile_step(step, model, tokens):
             families["other"] += us
     busy = sum(families.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    flash = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
+             for k in ("fa_fwd_wgmma_kernel", "fa_fwd_kernel",
+                       "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel")}
     return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "family_ms": {k: v / 1e3 for k, v in families.items()},
+            "flash_kernel_ms": flash,
             "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
 
 
@@ -430,6 +539,10 @@ def collective_phase():
         if not profile["family_ms"]["flash_attention"] > 0:
             raise AssertionError(f"profile shows no flash-attention "
                                  f"device time: {profile}")
+        # bf16 activations: the forward ran on the tensor cores
+        if not profile["flash_kernel_ms"]["fa_fwd_wgmma_kernel"] > 0:
+            raise AssertionError(f"profile shows no tensor-core forward: "
+                                 f"{profile['flash_kernel_ms']}")
         step_ms = sorted(times[1:])[len(times[1:]) // 2]
         profile["idle_share"] = 1.0 - profile["device_busy_ms"] / step_ms
         log("collective step profile:", json.dumps(profile))
@@ -508,9 +621,12 @@ def ps_phase(collective_losses):
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
-    "fwd_lse": ("fa_fwd_kernel<T,D,true>",
+    # bf16/f16 on the tensor cores; f32 on the FMA kernel
+    "fwd_lse": ("fa_fwd_wgmma_kernel<T,D,true> | "
+                "fa_fwd_kernel<float,D,true>",
                 "byteps_tpu/ops/flash_attention.py:253"),
-    "fwd": ("fa_fwd_kernel<T,D,false>",
+    "fwd": ("fa_fwd_wgmma_kernel<T,D,false> | "
+            "fa_fwd_kernel<float,D,false>",
             "byteps_tpu/ops/flash_attention.py:277"),
     "bwd_dq": ("fa_bwd_dq_kernel<T,D>",
                "byteps_tpu/ops/flash_attention.py:463"),
@@ -535,6 +651,7 @@ def main() -> int:
         torch.version.cuda)
 
     build_s = build_all()
+    sass = forward_sass()
     errors, timing = kernel_phase()
     coll_losses, coll_times, coll_launches, profile = collective_phase()
     ps_losses, ps_times, ps_staging, ps_launches = ps_phase(coll_losses)
@@ -542,6 +659,7 @@ def main() -> int:
     warm = slice(1, None)  # the first step pays one-time set-up
     summary = {
         "build_s": build_s,
+        "tensor_core_forward": sass,
         "collective": {"losses": coll_losses, "step_ms": coll_times,
                        "median_step_ms": sorted(coll_times[warm])[
                            len(coll_times[warm]) // 2],

@@ -75,6 +75,43 @@ def test_kernels_match_plain(case, dtype):
     assert not failures, failures
 
 
+FORWARD_CASES = {
+    # b, s_q, s_k, h, d, causal, window
+    "gpt2": (8, 512, 512, 12, 64, True, None),
+    "d16_one_query": (2, 1, 77, 3, 16, True, None),
+    "bh1000": (10, 130, 130, 100, 64, True, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_forward_matches_plain(case, dtype):
+    """The bf16/f16 forward (wgmma, TMA) with and without lse, at GPT-2's
+    shapes, with a single query row, and with more (batch, head) pairs
+    than the card has SMs many times over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, s_q, s_k, h, d, causal, window = FORWARD_CASES[case]
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(s):
+        return torch.randn((b, s, h, d), generator=g).to("cuda", dtype)
+
+    q, k, v = rnd(s_q), rnd(s_k), rnd(s_k)
+    scale = d ** -0.5
+    failures = []
+    print(f"case {case} {dtype}")
+    o, lse = fa.flash_fwd(q, k, v, causal, scale, window)
+    o_ref, lse_ref = fa._fwd_reference(q, k, v, causal, scale, window)
+    mag = fa._fwd_reference(q, k, v.abs(), causal, scale, window)[0]
+    _close("o", o, o_ref, mag.float(), failures)
+    _close("lse", lse, lse_ref, None, failures)
+    _close("o", fa.flash_fwd(q, k, v, causal, scale, window,
+                             return_lse=False), o_ref, mag.float(), failures)
+    assert not failures, failures
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
