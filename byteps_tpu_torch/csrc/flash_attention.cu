@@ -6,8 +6,10 @@
 //   fa_fwd_kernel<float, D, true>     f32          _flash_fwd_impl(return_lse=True)
 //   fa_fwd_wgmma_kernel<T, D, false>  bf16/f16 <- _kernel_nolse (forward with
 //   fa_fwd_kernel<float, D, false>    f32          no residuals)
-//   fa_bwd_dq_kernel<T, D>      <- _fa_bwd_dq_kernel (+ _bwd_recompute/_bwd_mask/_bwd_live)
-//   fa_bwd_dkv_kernel<T, D>     <- _fa_bwd_dkv_kernel
+//   fa_bwd_dq_wgmma_kernel<T, D>      bf16/f16 <- _fa_bwd_dq_kernel (+ _bwd_recompute,
+//   fa_bwd_dq_kernel<float, D>        f32          _bwd_mask, _bwd_live)
+//   fa_bwd_dkv_wgmma_kernel<T, D>     bf16/f16 <- _fa_bwd_dkv_kernel
+//   fa_bwd_dkv_kernel<float, D>       f32
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [batch, seq, heads, head_dim]
 // row-major (the public layout; no transposes around the kernels); lse and
@@ -41,10 +43,12 @@
 //   tile's S before this tile's softmax (two S fragments in registers)
 //   needs ~140 registers, leaves room for three blocks, and measured
 //   slower.
-// The f32 forward (fa_fwd_kernel) and the backward kernels do every product
-// as f32 FMAs on the CUDA cores from shared memory: TF32 would not hold
-// f32 inputs to f32 accuracy, and the f32 FMA peak (67 TFLOP/s) and
-// shared-memory bandwidth set their pace. Every product of two bf16/f16
+// The bf16/f16 backward kernels follow the same design (their note is
+// above fa_bwd_dq_wgmma_kernel). The f32 kernels (fa_fwd_kernel,
+// fa_bwd_dq_kernel, fa_bwd_dkv_kernel) do every product as f32 FMAs on the
+// CUDA cores from shared memory: TF32 would not hold f32 inputs to f32
+// accuracy, and the f32 FMA peak (67 TFLOP/s) and shared-memory bandwidth
+// set their pace. Every product of two bf16/f16
 // inputs is exact in f32 on either path, so the kernels differ from the
 // plain version in the order of their f32 sums and, on the tensor-core
 // path, in ex2's last bits (a relative 1e-6 in p, far below its rounding to
@@ -74,19 +78,13 @@ constexpr int NT = 256;       // threads per block: 16 row groups x 16 lanes
 constexpr float kNegInf = -1e30f;
 constexpr float kBig = 1e30f;
 
+// Conversions for the FMA kernels, which serve f32 only (bf16/f16 take the
+// tensor-core kernels).
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
 // x rounded to T and back: the kernels' counterpart of `.astype(T)`.
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -244,19 +242,22 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
 // --- the bf16/f16 forward on the tensor cores --------------------------------
 
-constexpr int WG = 128;     // threads of the tensor-core forward: one warpgroup
-constexpr int STAGES = 2;   // K/V tiles in flight in shared memory
+constexpr int WG = 128;     // threads of a tensor-core kernel: one warpgroup
+constexpr int STAGES = 2;   // streaming tiles in flight in shared memory
 
-// A [64 rows][D] tile in shared memory: panels of DP <= 64 columns (rows of
+// A [R rows][D] tile in shared memory: panels of DP <= 64 columns (rows of
 // 32, 64 or 128 bytes, in the swizzle of that width), side by side.
-template <int D> struct Tile {
+template <int D, int R = 64> struct Tile {
   static constexpr int DP = D < 64 ? D : 64;  // columns per panel
   static constexpr int ROW = DP * 2;          // bytes per panel row
-  static constexpr int PANEL = 64 * ROW;      // bytes per panel
+  static constexpr int PANEL = R * ROW;       // bytes per panel
   static constexpr int BYTES = D / DP * PANEL;
   static constexpr uint32_t SWZ = hopper::swizzle_code(ROW);
-  // tiles + 1024 bytes to align them to the swizzle atom + the mbarriers
-  static constexpr size_t SMEM = (1 + 2 * STAGES) * BYTES + 1024 + 8 * (1 + 2 * STAGES);
+  // Byte offset of columns 16j .. 16j+15, the j-th K step of an operand
+  // that is K-major along D.
+  __host__ __device__ static constexpr uint32_t kstep(int j) {
+    return (j / (DP / 16)) * PANEL + (j % (DP / 16)) * 32;
+  }
 };
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -709,6 +710,471 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
+// --- the bf16/f16 backward on the tensor cores --------------------------------
+//
+//   fa_bwd_dq_wgmma_kernel<T, D>   <- _fa_bwd_dq_kernel (+ _bwd_recompute,
+//                                     _bwd_mask, _bwd_live)
+//   fa_bwd_dkv_wgmma_kernel<T, D>  <- _fa_bwd_dkv_kernel
+// of byteps_tpu/ops/flash_attention.py, for bf16 and f16; f32 keeps the FMA
+// kernels above (TF32 would not hold f32 inputs to f32 accuracy).
+//
+// What bounds them on the H100. At GPT-2 small's shapes (b 8, s 512, h 12,
+// d 64, causal) dQ reads q, k, v, dO, lse and D and writes dq, ~31 MB or
+// 9.4 us at 3.35 TB/s, against 6 d operations per live (query, key) pair
+// (S, dP, dS K), 4.8 GFLOP or 4.9 us at the bf16 tensor-core peak; dK/dV
+// moves ~38 MB (11.3 us) against 10 d a pair (S^T, dP^T, dS^T Q and two
+// products for P^T dO), 8.1 GFLOP (8.2 us). Both are bound by bytes. Their
+// FMA predecessors ran at 3 % of that bound, held by arithmetic on the
+// wrong unit; on an H100 at 700 W these run at 55 % (dQ) and 36 % (dK/dV)
+// of it, held by each tile's chain of copy wait, products, recompute and
+// barrier, which three or four blocks an SM overlap. The design:
+// - every product is a wgmma with f32 accumulators in registers. dQ takes
+//   one warpgroup per 64 query rows and walks the K tiles: S = Q K^T and
+//   dP = dO V^T (both operands K-major over d), then dQ += dS K with K read
+//   MN-major. dK/dV takes one warpgroup per 64 key rows and walks the Q
+//   tiles with transposed tiles, rows keys and columns queries: S^T = K Q^T
+//   and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q with dO and Q read
+//   MN-major. The accumulator fragments of S^T and dP^T are already the A
+//   fragments of those products, so no tile is transposed through shared
+//   memory and p and ds never leave registers;
+// - the tiles loaded once (Q and dO, or K and V) and the two-stage ring of
+//   streaming tiles are copied by TMA with mbarrier completion, as in the
+//   forward. lse and D are per-row registers in dQ; dK/dV needs them per
+//   column and keeps each Q tile's 2 x 64 values in shared memory beside
+//   its ring stage (read from global a tile ahead);
+// - p = exp(s scale - lse) is one FMA and one ex2 (lse scaled by log2 e).
+//   lse = +1e30, a row with no live key or a row past the sequence (whose
+//   Q and dO tiles TMA fills with zeros), gives p = 0 exactly. Masks are
+//   per-row column bounds, evaluated only on tiles that cross the diagonal,
+//   the window edge or a sequence end;
+// - the rounding points are the TPU kernel's: dP from 16-bit dO and V with
+//   f32 sums (exact products); ds rounded to T before dQ and dK; dV from f32
+//   p (`p.astype(do.dtype)` with do already f32). For dV, p is split into
+//   p_hi = p rounded to T and p_lo = p - p_hi rounded to T, and dV takes two
+//   products, P_hi^T dO + P_lo^T dO, which hold p to 2^-18 p in bf16 (2^-22
+//   p in f16, or 2^-25 absolute where p_lo is subnormal). Rounding P to T
+//   alone, as FlashAttention-2/3 do, would add a rounding of 2^-9 p that
+//   the reference does not have and no check here could see (limit()'s
+//   eps |dv| term is larger);
+// - the heaviest causal tiles launch first: dQ's last q tiles, dK/dV's
+//   first K tiles. At d 128 dK/dV takes 32-query tiles (N = 32 for S^T and
+//   dP^T), so its two [64 x 128] f32 accumulators fit in registers beside
+//   the S^T and dP^T fragments.
+
+// ds = p (dp - D) scale on this thread's fragment of a [64 query][64 key]
+// dQ tile (layout of fa_fwd_wgmma_kernel), p = 2^(s scale log2 e - lse2)
+// with lse2 = lse log2 e per row; with MASK, elements outside [lo[r], hi[r]]
+// get p = 0. On return s holds ds (f32).
+template <bool MASK>
+__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
+                                        const float (&lse2)[2], const float (&dd)[2],
+                                        const int (&lo)[2], const int (&hi)[2], float scale_log2,
+                                        float scale) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = i * 4 + r * 2 + e;
+        float p = exp2_approx(fmaf(s[x], scale_log2, -lse2[r]));
+        if (MASK && !(8 * i + e >= lo[r] && 8 * i + e <= hi[r])) p = 0.f;
+        s[x] = p * (dp[x] - dd[r]) * scale;
+      }
+}
+
+// The same on a transposed [64 key][BN query] dK/dV tile, whose lse2 and D
+// are per column: rows[c] and rows[BN + c] for query column c. On return s
+// holds p and dp holds ds (both f32).
+template <int BN, bool MASK>
+__device__ __forceinline__ void p_ds_cols(float (&s)[BN / 2], float (&dp)[BN / 2],
+                                          const float* rows, int c0, const int (&lo)[2],
+                                          const int (&hi)[2], float scale_log2, float scale) {
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * i + c0);
+    const float2 dd = *reinterpret_cast<const float2*>(rows + BN + 8 * i + c0);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = i * 4 + r * 2 + e;
+        float p = exp2_approx(fmaf(s[x], scale_log2, -(e ? l2.y : l2.x)));
+        if (MASK && !(8 * i + e >= lo[r] && 8 * i + e <= hi[r])) p = 0.f;
+        s[x] = p;
+        dp[x] = p * (dp[x] - (e ? dd.y : dd.x)) * scale;
+      }
+  }
+}
+
+// Two f32 values as hi + lo, each a pack2 register of T: hi the values
+// rounded to T, lo the remainders rounded to T.
+template <typename T>
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = hopper::pack2<T>(a, b);
+  const float2 h = hopper::unpack2<T>(hi);
+  lo = hopper::pack2<T>(a - h.x, b - h.y);
+}
+
+// dQ of one 64-row q tile, walking its live K tiles (replaces
+// _fa_bwd_dq_kernel for bf16/f16; design in the note above).
+template <typename T, int D>
+__global__ void __launch_bounds__(WG)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                       const float* __restrict__ dvec, T* __restrict__ dq, int H, int Sq, int Sk,
+                       float scale, int causal, int window) {
+  using G = Tile<D>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sDO = sQ + G::BYTES;
+  const uint32_t sK = sDO + G::BYTES;           // stage st at sK + st * G::BYTES
+  const uint32_t sV = sK + STAGES * G::BYTES;
+  const uint32_t bar_q = sV + STAGES * G::BYTES;  // Q and dO
+  const uint32_t bar_k = bar_q + 8;             // stage st at bar_k + 8 * st
+  const uint32_t bar_v = bar_k + 8 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = BQ * (gridDim.y - 1 - blockIdx.y);  // most live K tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int nk = (Sk + BK - 1) / BK;
+  int kt_lo = 0, kt_hi = nk;
+  if (causal) {
+    kt_hi = min(nk, (min(q0 + BQ, Sq) - 1) / BK + 1);
+    if (window > 0) kt_lo = max(0, q0 - (window - 1)) / BK;
+  }
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Issued by thread 0: K and V tile kt into ring stage st.
+  auto load_kv = [&](int kt, int st) {
+    mbar_expect_tx(bar_k + 8 * st, G::BYTES);
+    for (int p = 0; p < D / G::DP; ++p)
+      tma_load_4d(sK + st * G::BYTES + p * G::PANEL, &tk, bar_k + 8 * st, p * G::DP, h, kt * BK,
+                  b);
+    mbar_expect_tx(bar_v + 8 * st, G::BYTES);
+    for (int p = 0; p < D / G::DP; ++p)
+      tma_load_4d(sV + st * G::BYTES + p * G::PANEL, &tv, bar_v + 8 * st, p * G::DP, h, kt * BK,
+                  b);
+  };
+  if (tid == 0 && kt_lo < kt_hi) {
+    mbar_expect_tx(bar_q, 2 * G::BYTES);
+    for (int p = 0; p < D / G::DP; ++p) {
+      tma_load_4d(sQ + p * G::PANEL, &tq, bar_q, p * G::DP, h, q0, b);
+      tma_load_4d(sDO + p * G::PANEL, &tdo, bar_q, p * G::DP, h, q0, b);
+    }
+    load_kv(kt_lo, 0);
+  }
+
+  const int qr = q0 + warp * 16 + (lane >> 2);  // query position of this thread's row 0
+  const int c0 = 2 * (lane & 3);                // this thread's first column in 8
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr + 8 * r;
+    lse2[r] = (qp < Sq ? lse[(size_t)bh * Sq + qp] : kBig) * kLog2e;
+    dd[r] = qp < Sq ? dvec[(size_t)bh * Sq + qp] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int lo[2], hi[2];  // live columns of a masked tile
+
+  if (kt_lo < kt_hi) mbar_wait(bar_q, 0);
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int it = kt - kt_lo, st = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    // The other stage was last read in the previous tile, which every warp
+    // has finished (the barrier at the end of the loop).
+    if (tid == 0 && kt + 1 < kt_hi) load_kv(kt + 1, (it + 1) % STAGES);
+    const int k0 = kt * BK;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(bar_k + 8 * st, parity);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)  // S = Q K^T, 16 columns of d a step
+      WgmmaSS<T, 64>::run(s, smem_desc(sQ + G::kstep(j), 16, 8 * G::ROW, G::SWZ),
+                          smem_desc(sK + st * G::BYTES + G::kstep(j), 16, 8 * G::ROW, G::SWZ),
+                          j > 0);
+    mbar_wait(bar_v + 8 * st, parity);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)  // dP = dO V^T
+      WgmmaSS<T, 64>::run(dp, smem_desc(sDO + G::kstep(j), 16, 8 * G::ROW, G::SWZ),
+                          smem_desc(sV + st * G::BYTES + G::kstep(j), 16, 8 * G::ROW, G::SWZ),
+                          j > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // Rows past Sq need no mask: their lse2 is huge, so p = 0.
+    const bool inner = k0 + BK <= Sk && (!causal || (k0 + BK - 1 <= q0 &&
+                                                    (window <= 0 || q0 + BQ - 1 - k0 < window)));
+    if (inner) {
+      ds_rows<false>(s, dp, lse2, dd, lo, hi, scale_log2, scale);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = qr + 8 * r;
+        hi[r] = (causal ? min(qp, Sk - 1) : Sk - 1) - k0 - c0;
+        lo[r] = (causal && window > 0 ? qp - window + 1 : 0) - k0 - c0;
+      }
+      ds_rows<true>(s, dp, lse2, dd, lo, hi, scale_log2, scale);
+    }
+
+    // dS rounded to T (ds.astype(k.dtype)) as the A fragment of dS K.
+    uint32_t da[16];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        da[4 * j + x] = pack2<T>(s[8 * j + 2 * x], s[8 * j + 2 * x + 1]);
+
+    fence_regs(acc);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)  // dQ += dS K, 16 keys a step
+      WgmmaRS<T, D>::run(acc, da + 4 * j,
+                         smem_desc(sK + st * G::BYTES + j * 16 * G::ROW, G::PANEL, 8 * G::ROW,
+                                   G::SWZ));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(da);
+    __syncthreads();  // stage st is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr + 8 * r;
+    if (qp >= Sq) continue;
+    T* row = dq + ((size_t)(b * Sq + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(row + 8 * i) =
+          pack2<T>(acc[i * 4 + r * 2], acc[i * 4 + r * 2 + 1]);
+  }
+}
+
+// Queries per tile of the dK/dV kernel: 32 at d 128 keeps its registers
+// (two [64 x 128] accumulators) clear of spills.
+template <int D> __host__ __device__ constexpr int dkv_bn() { return D == 128 ? 32 : 64; }
+
+// dK and dV of one 64-row K tile, walking its live Q tiles with transposed
+// score tiles (replaces _fa_bwd_dkv_kernel for bf16/f16; design in the
+// note above). dV keeps f32 p: two products, P_hi^T dO + P_lo^T dO.
+template <typename T, int D>
+__global__ void __launch_bounds__(WG)
+fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                        const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv,
+                        int H, int Sq, int Sk, float scale, int causal, int window) {
+  constexpr int BN = dkv_bn<D>();
+  using GK = Tile<D>;      // K, V: 64 key rows
+  using GQ = Tile<D, BN>;  // Q, dO: BN query rows
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sK = (base + 1023u) & ~1023u;
+  const uint32_t sV = sK + GK::BYTES;
+  const uint32_t sQ = sV + GK::BYTES;               // stage st at sQ + st * GQ::BYTES
+  const uint32_t sDO = sQ + STAGES * GQ::BYTES;
+  const uint32_t sRows = sDO + STAGES * GQ::BYTES;  // f32 [STAGES][lse2, D][BN]
+  const uint32_t bar_kv = sRows + STAGES * 2 * BN * 4;
+  const uint32_t bar_q = bar_kv + 8;                // stage st at bar_q + 8 * st
+  const uint32_t bar_do = bar_q + 8 * STAGES;
+  float* rows = reinterpret_cast<float*>(smem_raw + (sRows - base));
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = BK * blockIdx.y;  // the first keys, live for the most queries, first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int nq = (Sq + BN - 1) / BN;
+  int qt_lo = 0, qt_hi = nq;
+  if (causal) {
+    qt_lo = k0 / BN;  // first Q tile holding a q_pos >= k0
+    if (window > 0) qt_hi = min(nq, (min(k0 + BK, Sk) - 1 + window - 1) / BN + 1);
+  }
+
+  // Thread c < BN reads lse (as lse2) and thread 64 + c reads D of query
+  // column c of tile qt; rows past Sq read as lse = +1e30, D = 0.
+  const int rc = tid & 63;
+  auto row_value = [&](int qt) {
+    const int qp = qt * BN + rc;
+    if (tid < 64) return (qp < Sq ? lse[(size_t)bh * Sq + qp] : kBig) * kLog2e;
+    return qp < Sq ? dvec[(size_t)bh * Sq + qp] : 0.f;
+  };
+  auto put_row = [&](int st, float x) {
+    if (rc < BN) rows[(2 * st + (tid >> 6)) * BN + rc] = x;
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(bar_q + 8 * st, 1);
+      mbar_init(bar_do + 8 * st, 1);
+    }
+    mbar_fence_init();
+  }
+  if (qt_lo < qt_hi) put_row(0, row_value(qt_lo));
+  __syncthreads();
+
+  // Issued by thread 0: Q and dO tile qt into ring stage st.
+  auto load_qdo = [&](int qt, int st) {
+    mbar_expect_tx(bar_q + 8 * st, GQ::BYTES);
+    for (int p = 0; p < D / GQ::DP; ++p)
+      tma_load_4d(sQ + st * GQ::BYTES + p * GQ::PANEL, &tq, bar_q + 8 * st, p * GQ::DP, h,
+                  qt * BN, b);
+    mbar_expect_tx(bar_do + 8 * st, GQ::BYTES);
+    for (int p = 0; p < D / GQ::DP; ++p)
+      tma_load_4d(sDO + st * GQ::BYTES + p * GQ::PANEL, &tdo, bar_do + 8 * st, p * GQ::DP, h,
+                  qt * BN, b);
+  };
+  if (tid == 0 && qt_lo < qt_hi) {
+    mbar_expect_tx(bar_kv, 2 * GK::BYTES);
+    for (int p = 0; p < D / GK::DP; ++p) {
+      tma_load_4d(sK + p * GK::PANEL, &tk, bar_kv, p * GK::DP, h, k0, b);
+      tma_load_4d(sV + p * GK::PANEL, &tv, bar_kv, p * GK::DP, h, k0, b);
+    }
+    load_qdo(qt_lo, 0);
+  }
+
+  const int kr = k0 + warp * 16 + (lane >> 2);  // key position of this thread's row 0
+  const int c0 = 2 * (lane & 3);                // this thread's first column in 8
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  int lo[2], hi[2];  // live columns of a masked tile
+
+  if (qt_lo < qt_hi) mbar_wait(bar_kv, 0);
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int it = qt - qt_lo, st = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    // The other stage (tiles and rows) was last read in the previous tile,
+    // which every warp has finished (the barrier at the end of the loop).
+    if (tid == 0 && qt + 1 < qt_hi) load_qdo(qt + 1, (it + 1) % STAGES);
+    const float next_row = qt + 1 < qt_hi ? row_value(qt + 1) : 0.f;
+    const int q0 = qt * BN;
+
+    float s[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(bar_q + 8 * st, parity);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)  // S^T = K Q^T, 16 columns of d a step
+      WgmmaSS<T, BN>::run(s, smem_desc(sK + GK::kstep(j), 16, 8 * GK::ROW, GK::SWZ),
+                          smem_desc(sQ + st * GQ::BYTES + GQ::kstep(j), 16, 8 * GQ::ROW, GQ::SWZ),
+                          j > 0);
+    mbar_wait(bar_do + 8 * st, parity);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)  // dP^T = V dO^T
+      WgmmaSS<T, BN>::run(dp, smem_desc(sV + GK::kstep(j), 16, 8 * GK::ROW, GK::SWZ),
+                          smem_desc(sDO + st * GQ::BYTES + GQ::kstep(j), 16, 8 * GQ::ROW,
+                                    GQ::SWZ),
+                          j > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // Rows past Sk need no mask: they are never written, and rows of a
+    // product do not mix.
+    const float* st_rows = rows + 2 * st * BN;
+    const bool inner = q0 + BN <= Sq && (!causal || (q0 >= k0 + BK - 1 &&
+                                                    (window <= 0 || q0 + BN - 1 - k0 < window)));
+    if (inner) {
+      p_ds_cols<BN, false>(s, dp, st_rows, c0, lo, hi, scale_log2, scale);
+    } else {
+      // live query columns of each key row, relative to c0: query < Sq,
+      // and with causal query >= key and query - key < window
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kp = kr + 8 * r;
+        lo[r] = (causal ? kp : 0) - q0 - c0;
+        hi[r] = (causal && window > 0 ? min(Sq - 1, kp + window - 1) : Sq - 1) - q0 - c0;
+      }
+      p_ds_cols<BN, true>(s, dp, st_rows, c0, lo, hi, scale_log2, scale);
+    }
+
+    // A fragments: P^T as hi + lo halves in T (dV keeps f32 p), dS^T
+    // rounded to T (ds.astype(q.dtype)); queries 16j .. 16j+15 are
+    // accumulator chunks 2j and 2j+1.
+    uint32_t ph[BN / 4], pl[BN / 4], da[BN / 4];
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        split2<T>(s[8 * j + 2 * x], s[8 * j + 2 * x + 1], ph[4 * j + x], pl[4 * j + x]);
+        da[4 * j + x] = pack2<T>(dp[8 * j + 2 * x], dp[8 * j + 2 * x + 1]);
+      }
+
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {  // 16 queries a step
+      const uint64_t bdo = smem_desc(sDO + st * GQ::BYTES + j * 16 * GQ::ROW, GQ::PANEL,
+                                     8 * GQ::ROW, GQ::SWZ);
+      WgmmaRS<T, D>::run(acc_v, ph + 4 * j, bdo);  // dV += P_hi^T dO
+      WgmmaRS<T, D>::run(acc_v, pl + 4 * j, bdo);  // dV += P_lo^T dO
+      WgmmaRS<T, D>::run(acc_k, da + 4 * j,        // dK += dS^T Q
+                         smem_desc(sQ + st * GQ::BYTES + j * 16 * GQ::ROW, GQ::PANEL,
+                                   8 * GQ::ROW, GQ::SWZ));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(da);
+    if (qt + 1 < qt_hi) put_row((it + 1) % STAGES, next_row);
+    __syncthreads();  // stage st is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = kr + 8 * r;
+    if (kp >= Sk) continue;
+    const size_t off = ((size_t)(b * Sk + kp) * H + h) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+          pack2<T>(acc_k[i * 4 + r * 2], acc_k[i * 4 + r * 2 + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+          pack2<T>(acc_v[i * 4 + r * 2], acc_v[i * 4 + r * 2 + 1]);
+    }
+  }
+}
+
 // Raises a kernel's dynamic shared-memory limit once per device: the first
 // launch of each instantiation on a device pays for it, later ones do not.
 struct Prepared {
@@ -749,6 +1215,9 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
     }
   } else {
     using G = Tile<D>;
+    // Q + the K/V ring, 1024 bytes to align them to the swizzle atom, the
+    // mbarriers
+    constexpr size_t smem = (1 + 2 * STAGES) * G::BYTES + 1024 + 8 * (1 + 2 * STAGES);
     const CUtensorMapDataType dt = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -761,32 +1230,65 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
     // head before the next, lighter one (the kernel reverses y).
     const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
     if (lse != nullptr) {
-      if ((err = with_lse(fa_fwd_wgmma_kernel<T, D, true>, G::SMEM)) != cudaSuccess) return err;
-      fa_fwd_wgmma_kernel<T, D, true><<<grid, WG, G::SMEM, stream>>>(
+      if ((err = with_lse(fa_fwd_wgmma_kernel<T, D, true>, smem)) != cudaSuccess) return err;
+      fa_fwd_wgmma_kernel<T, D, true><<<grid, WG, smem, stream>>>(
           tq, tk, tv, (T*)o, (float*)lse, H, Sq, Sk, scale, causal, window);
     } else {
-      if ((err = without_lse(fa_fwd_wgmma_kernel<T, D, false>, G::SMEM)) != cudaSuccess)
+      if ((err = without_lse(fa_fwd_wgmma_kernel<T, D, false>, smem)) != cudaSuccess)
         return err;
-      fa_fwd_wgmma_kernel<T, D, false><<<grid, WG, G::SMEM, stream>>>(
+      fa_fwd_wgmma_kernel<T, D, false><<<grid, WG, smem, stream>>>(
           tq, tk, tv, (T*)o, nullptr, H, Sq, Sk, scale, causal, window);
     }
   }
   return cudaGetLastError();
 }
 
+// Tensor maps of q and dO (boxes of q_rows positions) and of k and v (boxes
+// of BK positions) for the tensor-core backward.
+template <typename T, int D>
+cudaError_t encode_qkvdo(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+                         const void* dout, int B, int H, int Sq, int Sk, int q_rows) {
+  constexpr int DP = Tile<D>::DP;
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t err;
+  if ((err = hopper::encode_bshd(&maps[0], q, dt, B, Sq, H, D, DP, q_rows)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&maps[1], k, dt, B, Sk, H, D, DP, BK)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&maps[2], v, dt, B, Sk, H, D, DP, BK)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&maps[3], dout, dt, B, Sq, H, D, DP, q_rows)) != cudaSuccess)
+    return err;
+  return cudaSuccess;
+}
+
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* dvec, void* dq, int B, int H, int Sq, int Sk,
                    float scale, int causal, int window, cudaStream_t stream) {
-  constexpr int LD = D + 1;
-  const size_t smem = sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * (BK + 1));
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   static Prepared prepared;
   cudaError_t err;
-  if ((err = prepared(fa_bwd_dq_kernel<T, D>, smem)) != cudaSuccess) return err;
-  fa_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)dvec, (T*)dq, H, Sq, Sk, scale, causal, window);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int LD = D + 1;
+    const size_t smem = sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * (BK + 1));
+    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+    if ((err = prepared(fa_bwd_dq_kernel<T, D>, smem)) != cudaSuccess) return err;
+    fa_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+        (const float*)dvec, (T*)dq, H, Sq, Sk, scale, causal, window);
+  } else {
+    using G = Tile<D>;
+    CUtensorMap m[4];
+    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BQ)) != cudaSuccess) return err;
+    // Q, dO + the K/V ring, 1024 bytes of alignment, the mbarriers
+    constexpr size_t smem = (2 + 2 * STAGES) * G::BYTES + 1024 + 8 * (1 + 2 * STAGES);
+    // x walks (batch, head) fastest, so each wave takes one q tile of every
+    // head before the next, lighter one (the kernel reverses y).
+    const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+    if ((err = prepared(fa_bwd_dq_wgmma_kernel<T, D>, smem)) != cudaSuccess) return err;
+    fa_bwd_dq_wgmma_kernel<T, D><<<grid, WG, smem, stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (T*)dq, H, Sq, Sk, scale,
+        causal, window);
+  }
   return cudaGetLastError();
 }
 
@@ -794,16 +1296,33 @@ template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* dvec, void* dk, void* dv, int B, int H, int Sq,
                     int Sk, float scale, int causal, int window, cudaStream_t stream) {
-  constexpr int LD = D + 1;
-  const size_t smem =
-      sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BK * (BQ + 1) + 2 * BQ);
-  const dim3 grid((Sk + BK - 1) / BK, B * H);
   static Prepared prepared;
   cudaError_t err;
-  if ((err = prepared(fa_bwd_dkv_kernel<T, D>, smem)) != cudaSuccess) return err;
-  fa_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)dvec, (T*)dk, (T*)dv, H, Sq, Sk, scale, causal, window);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int LD = D + 1;
+    const size_t smem =
+        sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BK * (BQ + 1) + 2 * BQ);
+    const dim3 grid((Sk + BK - 1) / BK, B * H);
+    if ((err = prepared(fa_bwd_dkv_kernel<T, D>, smem)) != cudaSuccess) return err;
+    fa_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+        (const float*)dvec, (T*)dk, (T*)dv, H, Sq, Sk, scale, causal, window);
+  } else {
+    constexpr int BN = dkv_bn<D>();
+    CUtensorMap m[4];
+    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN)) != cudaSuccess) return err;
+    // K, V + the Q/dO ring + its lse/D rows, 1024 bytes of alignment, the
+    // mbarriers
+    constexpr size_t smem = 2 * Tile<D>::BYTES + 2 * STAGES * Tile<D, BN>::BYTES +
+                            STAGES * 2 * BN * sizeof(float) + 1024 + 8 * (1 + 2 * STAGES);
+    // x walks (batch, head) fastest, so each wave takes one K tile of every
+    // head before the next, lighter one.
+    const dim3 grid(B * H, (Sk + BK - 1) / BK);
+    if ((err = prepared(fa_bwd_dkv_wgmma_kernel<T, D>, smem)) != cudaSuccess) return err;
+    fa_bwd_dkv_wgmma_kernel<T, D><<<grid, WG, smem, stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (T*)dk, (T*)dv, H, Sq, Sk,
+        scale, causal, window);
+  }
   return cudaGetLastError();
 }
 

@@ -128,6 +128,15 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The two values of a pack2 register, back in f32 (exact).
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t x);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t x) {
+  return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t x) {
+  return __half22float2(*reinterpret_cast<__half2*>(&x));
+}
+
 // Accumulator operand lists: d[0 .. N/2) of an m64nNk16 product.
 #define BTT_D8(i)                                                                           \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
@@ -185,6 +194,7 @@ template <typename T, int N> struct WgmmaRS;
     ", " DB ", p, 1, 1, 1;\n}\n"
 
 #define BTT_WGMMA_BOTH(TYPE, TS)                                                               \
+  BTT_WGMMA_SS(TYPE, TS, 32, BTT_SS_TAIL(32, TS, BTT_ACC32, "%16", "%17", "%18"))             \
   BTT_WGMMA_SS(TYPE, TS, 64, BTT_SS_TAIL(64, TS, BTT_ACC64, "%32", "%33", "%34"))             \
   BTT_WGMMA_RS(TYPE, TS, 16, BTT_RS_TAIL(16, TS, BTT_ACC16, "{%8, %9, %10, %11}", "%12", "%13")) \
   BTT_WGMMA_RS(TYPE, TS, 32,                                                                   \

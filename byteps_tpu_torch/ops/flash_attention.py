@@ -16,8 +16,11 @@ wrapper       CUDA kernel                            replaces
               ``fa_fwd_kernel<float, D, true>``
 ``fwd``       ``fa_fwd_wgmma_kernel<T, D, false>``,  ``_kernel_nolse``
               ``fa_fwd_kernel<float, D, false>``
-``bwd_dq``    ``fa_bwd_dq_kernel<T, D>``             ``_fa_bwd_dq_kernel``
-``bwd_dkv``   ``fa_bwd_dkv_kernel<T, D>``            ``_fa_bwd_dkv_kernel``
+``bwd_dq``    ``fa_bwd_dq_wgmma_kernel<T, D>``       ``_fa_bwd_dq_kernel``
+              (bf16/f16, tensor cores),
+              ``fa_bwd_dq_kernel<float, D>``
+``bwd_dkv``   ``fa_bwd_dkv_wgmma_kernel<T, D>``,     ``_fa_bwd_dkv_kernel``
+              ``fa_bwd_dkv_kernel<float, D>``
 ============  =====================================  ====================
 
 Each wrapper runs its plain PyTorch version (``_fwd_reference``,
@@ -128,15 +131,26 @@ def _term_magnitudes(q, k, v, do, lse, dvec, causal: bool, scale: float,
     term at another point than the plain version (p against its running
     max, ds from an f32 value summed in another order) may move each term
     by one ulp, so these bound how far the two can drift before the
-    output's own rounding."""
+    output's own rounding.
+
+    ``dq_dp`` and ``dk_dp`` carry the sums behind each ds one level
+    further: scale P (|dO||V|^T), the |term|s of dp = dO V^T, times |K|
+    or |Q|. ds = p (dp - D) scale cancels where dp is close to D (a row
+    whose probability sits on one key, as the first query under a causal
+    mask), and there two f32 evaluations of dp in another order differ by
+    more than ds itself."""
     o_mag = _fwd_reference(q, k, v.abs(), causal, scale, window)[0]
     p, ds = _recompute(q, k, v, do, lse, dvec, causal, scale, window)
     ds = ds.abs()
+    dp_mag = p * torch.einsum("bqhd,bkhd->bhqk", do.float().abs(),
+                              v.float().abs()) * scale
     return {
         "o": o_mag.float(),
         "dq": torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()),
         "dk": torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()),
         "dv": torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs()),
+        "dq_dp": torch.einsum("bhqk,bkhd->bqhd", dp_mag, k.float().abs()),
+        "dk_dp": torch.einsum("bhqk,bqhd->bkhd", dp_mag, q.float().abs()),
     }
 
 

@@ -7,8 +7,9 @@ Phases, each of which raises on failure:
 
 1. build: the flash-attention kernels (nvcc, sm_90a) and the C++ PS core
    (g++), both from this checkout's sources, in parallel, into
-   build/byteps_tpu_torch/; the SASS of each bf16/f16 forward
-   instantiation must hold HGMMA (wgmma) instructions;
+   build/byteps_tpu_torch/; the SASS of each bf16/f16 instantiation of
+   the tensor-core kernels (forward, dQ, dK/dV) must hold HGMMA (wgmma)
+   instructions;
 2. kernels: each of the four CUDA kernels against its plain PyTorch
    version on the card, at GPT-2 small's attention shapes (b 8, s 512,
    h 12, d 64, bf16, causal), on f32 cases (unaligned s 600, rectangular
@@ -16,7 +17,8 @@ Phases, each of which raises on failure:
    classes in bf16 and f16 (plus non-causal 96 x 96); at GPT-2's shapes
    each timed beside its plain version, PyTorch's
    scaled_dot_product_attention, and its bound (device time from CUDA
-   graph replays, kernel and SDPA forward in turns over 5 windows);
+   graph replays, the kernels and SDPA's forward and backward in turns
+   over 5 windows);
 3. collective mode: GPT2Small(attn_impl="flash") at full width trains a
    few steps of 8 x 512 tokens through init -> make_train_step with
    AdamW, then runs one evaluation forward under no_grad; the launch
@@ -89,10 +91,11 @@ def build_all():
     return results
 
 
-def forward_sass():
+def tensor_core_sass():
     """Registers, spills (the ptxas report) and HGMMA instructions (the
-    SASS, by cuobjdump) of each tensor-core forward instantiation; raises
-    if one has no HGMMA, i.e. does not run on the tensor cores."""
+    SASS, by cuobjdump) of each bf16/f16 instantiation of the tensor-core
+    kernels (forward with and without lse, dQ, dK/dV); raises if one has
+    no HGMMA, i.e. does not run on the tensor cores."""
     import re
 
     from byteps_tpu_torch.ops import _cuda_lib
@@ -101,7 +104,8 @@ def forward_sass():
         report = f.read()
     kernels = {}
     for m in re.finditer(
-            r"Compiling entry function '(\w*fa_fwd_wgmma_kernel\w*)'.*?"
+            r"Compiling entry function "
+            r"'(\w*fa_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel\w*)'.*?"
             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
             r"Used (\d+) registers", report, re.S):
         kernels[m.group(1)] = {"registers": int(m.group(4)),
@@ -120,13 +124,16 @@ def forward_sass():
             kernels[fn]["hgmma"] += 1
     named = {}
     for fn, v in kernels.items():
-        m = re.search(r"fa_fwd_wgmma_kernelI(\w+?)Li(\d+)ELb([01])E", fn)
-        dtype = "bfloat16" if "bfloat16" in m.group(1) else "float16"
-        named[f"{dtype} d{m.group(2)} lse={m.group(3)}"] = v
-    if len(named) != 16 or not all(v["hgmma"] > 0 for v in named.values()):
-        raise AssertionError(f"tensor-core forward: expected 16 "
+        m = re.search(r"(fa_\w+?)_wgmma_kernelI(\w+?)Li(\d+)E(?:Lb([01])E)?",
+                      fn)
+        dtype = "bfloat16" if "bfloat16" in m.group(2) else "float16"
+        lse = f" lse={m.group(4)}" if m.group(4) else ""
+        named[f"{m.group(1)} {dtype} d{m.group(3)}{lse}"] = v
+    # forward: 2 dtypes x 4 head dims x lse or not; dQ and dK/dV: 8 each
+    if len(named) != 32 or not all(v["hgmma"] > 0 for v in named.values()):
+        raise AssertionError(f"tensor-core kernels: expected 32 "
                              f"instantiations with HGMMA, got {named}")
-    log("tensor-core forward (ptxas, SASS):", json.dumps(named))
+    log("tensor-core kernels (ptxas, SASS):", json.dumps(named))
     return named
 
 
@@ -149,22 +156,27 @@ def _time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def _time_alternating(fns, windows=5, iters=20):
+def _time_alternating(fns, windows=5, iters=20, stream=None):
     """Device ms per call of each function: ``iters`` calls are captured in
     one CUDA graph per function, so the host's launch cost is out of the
     window, and the graphs are replayed in turns (a, b, a, b, ...) for
-    ``windows`` windows. Returns {name: (median, min, max)}."""
+    ``windows`` windows. Returns {name: (median, min, max)}.
+
+    Warm-up and capture run on ``stream`` (a new one if None). An autograd
+    backward runs on the stream of its forward, so a function that calls
+    ``torch.autograd.grad`` is captured only if its forward ran on this
+    stream, as ``torch.cuda.make_graphed_callables`` arranges."""
     import torch
+    side = stream or torch.cuda.Stream()
     graphs = {}
     for name, fn in fns.items():
-        side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(3):
                 fn()
         torch.cuda.current_stream().wait_stream(side)
         graphs[name] = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graphs[name]):
+        with torch.cuda.graph(graphs[name], stream=side):
             for _ in range(iters):
                 fn()
     times = {name: [] for name in fns}
@@ -196,28 +208,32 @@ def _live_pairs(s_q, s_k, causal, window):
     return total
 
 
+def _ops_per_pair(name, dtype):
+    """Matrix-product operations per live (query, key) pair and head-dim
+    element: the forward's S and P V (2 + 2), dQ's S, dP and dS K (6),
+    dK/dV's S^T, dP^T, dS^T Q and P^T dO (8), plus 2 in bf16/f16, where
+    dV takes P^T dO twice (p as the sum of two 16-bit halves)."""
+    return {"fwd_lse": 4, "fwd": 4, "bwd_dq": 6,
+            "bwd_dkv": 8 if dtype == "float32" else 10}[name]
+
+
 def _bound_ms(name, b, h, s_q, s_k, d, elem, causal, window, dtype):
     """Least time on the card: bytes read once and written once at the HBM
     rate against the matrix-product operations at the peak of the dtype
     (exp and the rest are not counted)."""
     q_bytes, kv_bytes = b * s_q * h * d * elem, b * s_k * h * d * elem
     row_bytes = b * h * s_q * 4  # one f32 per query row (lse, D)
-    pairs = b * h * _live_pairs(s_q, s_k, causal, window)
-    if name == "fwd_lse":
-        nbytes, ops = 2 * q_bytes + 2 * kv_bytes + row_bytes, 4 * d * pairs
-    elif name == "fwd":
-        nbytes, ops = 2 * q_bytes + 2 * kv_bytes, 4 * d * pairs
-    elif name == "bwd_dq":
-        nbytes, ops = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, \
-            6 * d * pairs
-    else:  # bwd_dkv
-        nbytes, ops = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, \
-            8 * d * pairs
+    ops = _ops_per_pair(name, dtype) * d * b * h * _live_pairs(
+        s_q, s_k, causal, window)
+    nbytes = {"fwd_lse": 2 * q_bytes + 2 * kv_bytes + row_bytes,
+              "fwd": 2 * q_bytes + 2 * kv_bytes,
+              "bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+              "bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}[name]
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def limit(dtype, what, got, want, mag):
+def limit(dtype, what, got, want, mag, mag_dp=None):
     """Element-wise limit of |got - want|, kernel against plain version on
     the same inputs; a worst-case bound from the arithmetic, not a fit.
 
@@ -232,6 +248,12 @@ def limit(dtype, what, got, want, mag):
       final max in the plain version; ds from f32 values that differ in
       their last bit), one rounding of at most eps/2 each: eps * mag;
     - f32 sums of up to ~1600 terms in another order: 1e-4 * mag;
+    - dq and dk: each ds = p (dp - D) scale holds an f32 sum dp of d <=
+      128 exact products, which the two sides form in another order, each
+      within 128 * 2^-23 of its sum of |term| (tensor-core sums truncate):
+      3e-5 * mag_dp, with ``mag_dp`` those sums carried to the element
+      (``_term_magnitudes``' dq_dp, dk_dp). Where dp is close to D this
+      difference is larger than ds itself, so ``mag`` does not cover it;
     - 1e-6, so an element that is 0 on both sides has a limit."""
     import torch
     if what == "lse":
@@ -239,28 +261,29 @@ def limit(dtype, what, got, want, mag):
     eps = torch.finfo(getattr(torch, dtype)).eps
     rounded = dtype != "float32" and what in ("o", "dq", "dk")
     return (1e-6 + eps * torch.maximum(got.abs(), want.abs())
-            + ((eps if rounded else 0.0) + 1e-4) * mag)
+            + ((eps if rounded else 0.0) + 1e-4) * mag
+            + (0.0 if mag_dp is None else 3e-5 * mag_dp))
 
 
-def compare(dtype, what, got, want, mag):
+def compare(dtype, what, got, want, mag, mag_dp=None):
     """(max abs error, worst ratio of error to its element's limit,
     finite): the check passes when the ratio is at most 1."""
     import torch
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    ratio = (diff / limit(dtype, what, got, want, mag)).max().item()
+    ratio = (diff / limit(dtype, what, got, want, mag, mag_dp)).max().item()
     return diff.max().item(), ratio, bool(torch.isfinite(got).all())
 
 
 CASES = [
     # name, b, s_q, s_k, h, d, dtype, causal, window
     ("gpt2", BATCH, SEQ, SEQ, 12, 64, "bfloat16", True, None),
-    # f32: the FMA forward
+    # f32: the FMA kernels
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
     ("window64", 1, 300, 300, 2, 16, "float32", True, 64),
 ] + [
-    # bf16 / f16: the tensor-core forward on every shape class
+    # bf16 / f16: the tensor-core kernels on every shape class
     (f"{name}_{dtype}", b, s_q, s_k, h, d, dtype, causal, window)
     for dtype in ("bfloat16", "float16")
     for (name, b, s_q, s_k, h, d, causal, window) in [
@@ -313,7 +336,8 @@ def kernel_phase():
             worst = 0.0
             for what, got, want in items:
                 err, ratio, finite = compare(dtype, what, got, want,
-                                             mag.get(what))
+                                             mag.get(what),
+                                             mag.get(what + "_dp"))
                 worst = max(worst, err)
                 detail[f"{kname}.{what}"] = {
                     "max_abs_err": err, "err_over_limit": ratio}
@@ -328,7 +352,9 @@ def kernel_phase():
         if case != "gpt2":
             continue
         # Times at the main path's shapes: kernel, plain version, and
-        # PyTorch's SDPA (forward; backward of all three gradients).
+        # PyTorch's SDPA (forward; backward of all three gradients, which
+        # stands beside bwd_dq + bwd_dkv: no PyTorch call computes dQ
+        # alone).
         elem = q.element_size()
         kt = {
             "fwd_lse": lambda: fa.flash_fwd(q, k, v, causal, scale, window),
@@ -351,23 +377,29 @@ def kernel_phase():
             with torch.no_grad():
                 return F.scaled_dot_product_attention(qt, kt_, vt,
                                                       is_causal=True)
-        # device time: each kernel and SDPA's forward in turns, 5 windows
-        dev = _time_alternating({**kt, "sdpa_fwd": sdpa})
+        # SDPA's forward runs once, on the stream the graphs are captured
+        # on, so that its backward alone is captured and timed
+        cap = torch.cuda.Stream()
+        cap.wait_stream(torch.cuda.current_stream())
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt_, vt))
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         gout = do.transpose(1, 2)
-        sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), gout, retain_graph=True))
+        with torch.cuda.stream(cap):
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+        def sdpa_bwd():
+            torch.autograd.grad(out, (qg, kg, vg), gout, retain_graph=True)
+        # device time: each kernel and SDPA's forward and backward in
+        # turns, 5 windows
+        dev = _time_alternating({**kt, "sdpa_fwd": sdpa,
+                                 "sdpa_bwd": sdpa_bwd}, stream=cap)
 
         def sdpa_fwd_bwd():
             o_ = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
             torch.autograd.grad(o_, (qg, kg, vg), gout)
         sdpa_both = _time_ms(sdpa_fwd_bwd)
-        # SDPA's backward is timed eagerly, in one window (no spread)
         library = {"fwd_lse": dev["sdpa_fwd"], "fwd": dev["sdpa_fwd"],
-                   "bwd_dq": (sdpa_bwd, None), "bwd_dkv": (sdpa_bwd, None)}
+                   "bwd_dq": dev["sdpa_bwd"], "bwd_dkv": dev["sdpa_bwd"]}
         pairs = b * h * _live_pairs(s_q, s_k, causal, window)
-        ops_per_pair = {"fwd_lse": 4, "fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}
         for kname in kt:
             bound, by = _bound_ms(kname, b, h, s_q, s_k, d, elem, causal,
                                   window, dtype)
@@ -378,12 +410,15 @@ def kernel_phase():
                 "plain_ms": _time_ms(pt[kname], iters=5, warmup=1),
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": library[kname][0],
-                "library_ms_spread": (list(library[kname][1:])
-                                      if library[kname][1] else None),
-                "tflops": ops_per_pair[kname] * d * pairs / (ms * 1e-3)
-                / 1e12,
+                "library_ms_spread": list(library[kname][1:]),
+                "tflops": _ops_per_pair(kname, dtype) * d * pairs
+                / (ms * 1e-3) / 1e12,
                 "bound_share": bound / ms,
             }
+        report["bwd_pair"] = {
+            "ms": dev["bwd_dq"][0] + dev["bwd_dkv"][0],
+            "sdpa_bwd_ms": dev["sdpa_bwd"][0],
+            "sdpa_bwd_ms_spread": list(dev["sdpa_bwd"][1:])}
         report["sdpa_fwd_bwd_ms"] = sdpa_both
         del out, qg, kg, vg
     if failures:
@@ -488,6 +523,7 @@ def _profile_step(step, model, tokens):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
              for k in ("fa_fwd_wgmma_kernel", "fa_fwd_kernel",
+                       "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel",
                        "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel")}
     return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "family_ms": {k: v / 1e3 for k, v in families.items()},
@@ -539,10 +575,13 @@ def collective_phase():
         if not profile["family_ms"]["flash_attention"] > 0:
             raise AssertionError(f"profile shows no flash-attention "
                                  f"device time: {profile}")
-        # bf16 activations: the forward ran on the tensor cores
-        if not profile["flash_kernel_ms"]["fa_fwd_wgmma_kernel"] > 0:
-            raise AssertionError(f"profile shows no tensor-core forward: "
-                                 f"{profile['flash_kernel_ms']}")
+        # bf16 activations: the forward, dQ and dK/dV ran on the tensor
+        # cores
+        for name in ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
+                     "fa_bwd_dkv_wgmma_kernel"):
+            if not profile["flash_kernel_ms"][name] > 0:
+                raise AssertionError(f"profile shows no {name}: "
+                                     f"{profile['flash_kernel_ms']}")
         step_ms = sorted(times[1:])[len(times[1:]) // 2]
         profile["idle_share"] = 1.0 - profile["device_busy_ms"] / step_ms
         log("collective step profile:", json.dumps(profile))
@@ -628,9 +667,11 @@ REPLACES = {
     "fwd": ("fa_fwd_wgmma_kernel<T,D,false> | "
             "fa_fwd_kernel<float,D,false>",
             "byteps_tpu/ops/flash_attention.py:277"),
-    "bwd_dq": ("fa_bwd_dq_kernel<T,D>",
+    "bwd_dq": ("fa_bwd_dq_wgmma_kernel<T,D> | "
+               "fa_bwd_dq_kernel<float,D>",
                "byteps_tpu/ops/flash_attention.py:463"),
-    "bwd_dkv": ("fa_bwd_dkv_kernel<T,D>",
+    "bwd_dkv": ("fa_bwd_dkv_wgmma_kernel<T,D> | "
+                "fa_bwd_dkv_kernel<float,D>",
                 "byteps_tpu/ops/flash_attention.py:487"),
 }
 
@@ -651,7 +692,7 @@ def main() -> int:
         torch.version.cuda)
 
     build_s = build_all()
-    sass = forward_sass()
+    sass = tensor_core_sass()
     errors, timing = kernel_phase()
     coll_losses, coll_times, coll_launches, profile = collective_phase()
     ps_losses, ps_times, ps_staging, ps_launches = ps_phase(coll_losses)
@@ -659,7 +700,7 @@ def main() -> int:
     warm = slice(1, None)  # the first step pays one-time set-up
     summary = {
         "build_s": build_s,
-        "tensor_core_forward": sass,
+        "tensor_core_kernels": sass,
         "collective": {"losses": coll_losses, "step_ms": coll_times,
                        "median_step_ms": sorted(coll_times[warm])[
                            len(coll_times[warm]) // 2],
@@ -669,6 +710,7 @@ def main() -> int:
                               for s in ps_staging],
                "launches": ps_launches},
         "sdpa_fwd_bwd_ms": timing["sdpa_fwd_bwd_ms"],
+        "bwd_pair": timing["bwd_pair"],
         "kernel_errors": errors,
         "kernel_readings": timing["readings"],
     }

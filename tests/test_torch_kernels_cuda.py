@@ -29,14 +29,21 @@ CASES = {
 }
 
 
-def _close(what, got, want, mag, failures):
-    """Element-wise check; prints the worst ratio of error to limit."""
-    lim = limit(str(got.dtype).replace("torch.", ""), what, got.float(),
-                want.float(), mag)
+def _close(what, got, want, mag, failures, mag_dp=None):
+    """Element-wise check; prints the worst ratio of error to limit (and,
+    where ``mag_dp`` is given, the ratio the limit reads without its dp
+    term)."""
+    dtype = str(got.dtype).replace("torch.", "")
     diff = (got.float() - want.float()).abs()
-    ratio = (diff / lim).max().item()
+    ratio = (diff / limit(dtype, what, got.float(), want.float(), mag,
+                          mag_dp)).max().item()
+    without = ""
+    if mag_dp is not None:
+        without = " (without the dp term {:.3f})".format(
+            (diff / limit(dtype, what, got.float(), want.float(),
+                          mag)).max().item())
     print(f"{what}: max_abs_err {diff.max().item():.3e} err/limit "
-          f"{ratio:.3f}")
+          f"{ratio:.3f}{without}")
     if not (bool(torch.isfinite(got).all()) and ratio <= 1.0):
         failures.append(f"{what}: error/limit {ratio:.3f}")
 
@@ -68,14 +75,14 @@ def test_kernels_match_plain(case, dtype):
     _close("o", fa.flash_fwd(q, k, v, causal, scale, window,
                              return_lse=False), o_ref, mag["o"], failures)
     _close("dq", fa.flash_bwd_dq(*args), fa._bwd_dq_reference(*args),
-           mag["dq"], failures)
+           mag["dq"], failures, mag["dq_dp"])
     for what, got, want in zip(("dk", "dv"), fa.flash_bwd_dkv(*args),
                                fa._bwd_dkv_reference(*args)):
-        _close(what, got, want, mag[what], failures)
+        _close(what, got, want, mag[what], failures, mag.get(what + "_dp"))
     assert not failures, failures
 
 
-FORWARD_CASES = {
+TENSOR_CORE_CASES = {
     # b, s_q, s_k, h, d, causal, window
     "gpt2": (8, 512, 512, 12, 64, True, None),
     "d16_one_query": (2, 1, 77, 3, 16, True, None),
@@ -84,7 +91,7 @@ FORWARD_CASES = {
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+@pytest.mark.parametrize("case", sorted(TENSOR_CORE_CASES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_tensor_core_forward_matches_plain(case, dtype):
     """The bf16/f16 forward (wgmma, TMA) with and without lse, at GPT-2's
@@ -92,7 +99,7 @@ def test_tensor_core_forward_matches_plain(case, dtype):
     than the card has SMs many times over."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    b, s_q, s_k, h, d, causal, window = FORWARD_CASES[case]
+    b, s_q, s_k, h, d, causal, window = TENSOR_CORE_CASES[case]
     g = torch.Generator().manual_seed(0)
 
     def rnd(s):
@@ -109,6 +116,38 @@ def test_tensor_core_forward_matches_plain(case, dtype):
     _close("lse", lse, lse_ref, None, failures)
     _close("o", fa.flash_fwd(q, k, v, causal, scale, window,
                              return_lse=False), o_ref, mag.float(), failures)
+    assert not failures, failures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TENSOR_CORE_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_backward_matches_plain(case, dtype):
+    """The bf16/f16 dQ and dK/dV kernels (wgmma, TMA) from the plain
+    forward's residuals, on the same shapes as the forward above
+    (test_kernels_match_plain holds them on rectangular causal shapes and
+    on a sliding window at d 128, where dK/dV takes 32-query tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, s_q, s_k, h, d, causal, window = TENSOR_CORE_CASES[case]
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(s):
+        return torch.randn((b, s, h, d), generator=g).to("cuda", dtype)
+
+    q, k, v, do = rnd(s_q), rnd(s_k), rnd(s_k), rnd(s_q)
+    scale = d ** -0.5
+    failures = []
+    print(f"case {case} {dtype}")
+    o_ref, lse_ref = fa._fwd_reference(q, k, v, causal, scale, window)
+    dvec = (do.float() * o_ref.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse_ref, dvec, causal, scale, window)
+    mag = fa._term_magnitudes(*args)
+    _close("dq", fa.flash_bwd_dq(*args), fa._bwd_dq_reference(*args),
+           mag["dq"], failures, mag["dq_dp"])
+    for what, got, want in zip(("dk", "dv"), fa.flash_bwd_dkv(*args),
+                               fa._bwd_dkv_reference(*args)):
+        _close(what, got, want, mag[what], failures, mag.get(what + "_dp"))
     assert not failures, failures
 
 

@@ -5,8 +5,10 @@
 
 Builds variants of ``byteps_tpu_torch/csrc/flash_attention.cu``, each the
 committed source with one part of ``fa_fwd_wgmma_kernel`` taken out or
-changed (by text substitution, so a variant that no longer applies fails
-loudly), with the port's nvcc flags, into ``build/ablate/<variant>/``. Then
+changed (by text substitution inside that kernel, so a variant that no
+longer applies fails loudly), with the port's nvcc flags, into
+``build/ablate/<variant>/`` (``tools/fa_bwd_ablate.py`` does the same for
+the backward kernels with ``build_all``). Then
 times the forward with lse of each variant at GPT-2 small's attention
 shapes (b 8, s 512, h 12, d 64, bf16, causal) as ``chip_smoke.py`` times
 the kernels: CUDA-graph replays, variants in turns over 5 windows.
@@ -29,40 +31,55 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+FWD = "fa_fwd_wgmma_kernel"
 SOFTMAX = """      softmax_tile<true>(s, m, l, corr, lo, hi, scale_log2);
     }"""
+# variant: [(kernel, text, replacement)], each replacing every occurrence of
+# the text inside that kernel's definition
 VARIANTS = {
     "committed": [],
     # no softmax: p = s, no rescale (the products and copies alone)
     "no_softmax": [
-        ("    if (full) {\n      softmax_tile<false>",
+        (FWD, "    if (full) {\n      softmax_tile<false>",
          "    corr[0] = corr[1] = 1.f;\n    if (false) {\n"
          "      softmax_tile<false>"),
-        (SOFTMAX, SOFTMAX.replace("softmax_tile<true>", "if (false) "
-                                  "softmax_tile<true>")),
+        (FWD, SOFTMAX, SOFTMAX.replace("softmax_tile<true>", "if (false) "
+                                       "softmax_tile<true>")),
     ],
     # every tile takes the unmasked softmax
-    "no_masks": [("const bool full =", "const bool full = true || ")],
+    "no_masks": [(FWD, "const bool full =", "const bool full = true || ")],
     # q tiles launched lightest first
     "forward_q_order": [
-        ("const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;",
+        (FWD, "const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;",
          "const int q0 = blockIdx.y * BQ;")],
     # no S = Q K^T product (S stays 0)
-    "no_qk": [("      WgmmaSS<T, 64>::run(s,", "      if (false) "
+    "no_qk": [(FWD, "      WgmmaSS<T, 64>::run(s,", "      if (false) "
                "WgmmaSS<T, 64>::run(s,")],
     # no O += P V product
-    "no_pv": [("      WgmmaRS<T, D>::run(acc,", "      if (false) "
+    "no_pv": [(FWD, "      WgmmaRS<T, D>::run(acc,", "      if (false) "
                "WgmmaRS<T, D>::run(acc,")],
 }
 
 
-def build(name):
+def edit(src, kernel, old, new):
+    """src with every ``old`` inside the definition of ``kernel`` (from its
+    name at the start of a line to the first closing brace at the start of
+    a line) replaced by ``new``; raises if there is none."""
+    start = src.index(f"\n{kernel}(")
+    end = src.index("\n}\n", start)
+    body = src[start:end]
+    if old not in body:
+        raise RuntimeError(f"{old!r} not in {kernel}")
+    return src[:start] + body.replace(old, new) + src[end:]
+
+
+def build(name, edits):
+    """The committed source with ``edits`` applied, built with the port's
+    nvcc flags into build/ablate/<name>/; returns (name, library path)."""
     from byteps_tpu_torch.ops import _cuda_lib
     src = open(os.path.join(_cuda_lib.CSRC, "flash_attention.cu")).read()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise RuntimeError(f"variant {name}: {old!r} not in the source")
-        src = src.replace(old, new)
+    for kernel, old, new in edits:
+        src = edit(src, kernel, old, new)
     out = os.path.join(HERE, "build", "ablate", name)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "flash_attention.cu"), "w") as f:
@@ -76,14 +93,26 @@ def build(name):
     return name, lib
 
 
+def build_all(variants):
+    """{name: library path}, the variants built in parallel."""
+    with ThreadPoolExecutor(len(variants)) as ex:
+        return dict(ex.map(lambda kv: build(*kv), variants.items()))
+
+
+def card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("fa_fwd_ablate: needs a CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import _time_alternating
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        libs = dict(ex.map(build, VARIANTS))
+    libs = build_all(VARIANTS)
     b, s, h, d = 8, 512, 12, 64
     g = torch.Generator().manual_seed(1)
     q, k, v = (torch.randn((b, s, h, d), generator=g).to("cuda",
@@ -104,11 +133,7 @@ def main() -> int:
             if rc != 0:
                 raise RuntimeError(f"launch failed: cudaError {rc}")
         fns[name] = call
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "ms": {
+    print(json.dumps({"card": card(), "ms": {
         name: list(t) for name, t in _time_alternating(fns).items()}}))
     return 0
 
