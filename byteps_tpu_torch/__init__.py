@@ -265,17 +265,33 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
 # --- DistributedOptimizer ---------------------------------------------------
 
 class DistributedOptimizer:
-    """Wrap a ``torch.optim.Optimizer`` so that ``step()`` first
-    push_pulls every ``.grad`` (reference: byteps.torch
-    DistributedOptimizer). Other attributes pass through to the wrapped
-    optimizer.
+    """Wrap a ``torch.optim.Optimizer`` so that the gradients are summed
+    (mean with ``average``) across workers before its ``step()``
+    (reference: byteps.torch DistributedOptimizer). Other attributes pass
+    through to the wrapped optimizer.
+
+    PS mode: a ``register_post_accumulate_grad_hook`` on each parameter
+    starts its gradient's D2H copy and push the moment backward has
+    accumulated it, as in ``overlap.py`` (the same ``_TapState``, prefix
+    ``"grad"``), so communication overlaps the rest of backward;
+    ``step()`` waits for the pulls, writes the sums into ``.grad`` and
+    steps. ``compression`` (``bf16``/``fp16``) casts each gradient on the
+    card, and the servers sum that dtype, as ``push_pull`` has them do
+    (f32 when a codec is configured, as ``ps._wire_plan`` declares). Every
+    parameter must get a gradient in each backward pass. ``timings`` holds
+    the last step's pushes and the time the last pull was waited (host
+    clock).
+
+    Collective mode: ``step()`` push_pulls every ``.grad`` first (the JAX
+    DistributedOptimizer leaves overlap there to the compiler).
 
     ``backward_passes_per_step`` > 1 is the reference's accumulation
     contract: gradients accumulate in ``.grad`` over that many backward
-    passes and are communicated once, at ``step()``; dividing by the count
-    is the caller's, as in the reference. Overlapping the push_pull with
-    backward through gradient hooks is not ported yet.
+    passes and are communicated once (PS mode: from the hook of the last
+    pass); dividing by the count is the caller's, as in the reference.
     """
+
+    _WIRES = {"none": "float32", "bf16": "bfloat16", "fp16": "float16"}
 
     def __init__(self, optimizer: torch.optim.Optimizer, *,
                  average: bool = True,
@@ -287,12 +303,35 @@ class DistributedOptimizer:
         self.average = average
         self.compression = compression
         self.backward_passes_per_step = backward_passes_per_step
+        self._taps = None
+        self.timings: dict = {}
+        client = _st().ps_client
+        if client is not None:
+            if compression.name not in self._WIRES:
+                raise ValueError(
+                    f"Compression {compression.name!r} has no PS-mode "
+                    f"wire; use one of {sorted(self._WIRES)}")
+            from byteps_tpu_torch.overlap import _TapState
+            self._taps = _TapState(
+                client, [p for g in optimizer.param_groups
+                         for p in g["params"]], "grad", average, None,
+                wire_dtype=self._WIRES[compression.name],
+                backward_passes_per_step=backward_passes_per_step,
+                sum_wire=True)
 
     def __getattr__(self, attr):
         return getattr(self.__dict__["optimizer"], attr)
 
     def synchronize(self) -> None:
-        """push_pull every ``.grad`` in place of the local one."""
+        """Replace every ``.grad`` with its sum across workers (PS mode:
+        wait for the pushes the hooks started)."""
+        if self._taps is not None:
+            try:
+                self._taps.collect()
+                self.timings = dict(self._taps.timeline)
+            finally:
+                self._taps.reset_window()
+            return
         params = [p for g in self.optimizer.param_groups
                   for p in g["params"] if p.grad is not None]
         if not params:
@@ -307,4 +346,9 @@ class DistributedOptimizer:
         return self.optimizer.step(closure)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
+        if self._taps is not None:
+            # a failed step may have left pushes in flight: settle them
+            # and start the next window clean
+            self._taps.settle()
+            self._taps.reset_window()
         self.optimizer.zero_grad(set_to_none=set_to_none)

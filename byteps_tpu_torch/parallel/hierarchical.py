@@ -182,3 +182,19 @@ def tree_broadcast(tree, *, root: int = 0, ici_group: Group = None,
         hierarchical_broadcast(x, root=root, ici_group=ici_group,
                                dcn_group=dcn_group)
         for x in leaves])
+
+
+def _blockwise_quantize(x: torch.Tensor, block: int):
+    """int8-quantize with one f32 scale per ``block`` values (x is padded
+    to a block multiple by the caller). Returns (q[int8], scales[f32]).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    b = x.reshape(-1, block).to(torch.float32)
+    scale = b.abs().amax(dim=1, keepdim=True) / 127.0
+    safe = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(b / safe), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _blockwise_dequantize(q: torch.Tensor, scale: torch.Tensor
+                          ) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).reshape(-1)

@@ -9,13 +9,23 @@ the sum back into the same host buffers. One BytePS worker per process.
 Host staging: one batched D2H of the whole tree into fresh contiguous
 host tensors (pinned when the tree is on the card), handed to the core
 through their numpy views, then one batched H2D on the caller's stream.
+
+The overlapped steps (``overlap.py``, ``bucketed.py`` and the PS-mode
+``DistributedOptimizer``) stage differently, with the pieces at the end
+of this module: tensors declared once on the bridge thread
+(``declare_ordered``), persistent host buffers, copies queued on a
+dedicated copy stream behind events (``ready_event``, ``copy_to_host``,
+``copy_from_host``), and one ``Stager`` thread between the copies and the
+core's push queue.
 """
 
 from __future__ import annotations
 
 import contextlib
+import queue
 import threading
 import time
+import traceback
 import zlib
 from typing import Optional
 
@@ -278,3 +288,123 @@ def ps_barrier() -> None:
     if st.ps_client is None:
         raise RuntimeError("PS mode is not active")
     st.ps_client.barrier()
+
+
+# --- staging for the overlapped steps ----------------------------------------
+
+def declare_ordered(client, specs):
+    """Declare ``specs``, (name, numel, wire dtype name, compression) in
+    priority order (front of the model first), on the bridge thread, and
+    return their ids. Wire ids follow declaration order, so a gradient
+    hook, which fires back to front, never declares."""
+    return _run_ordered(lambda: [
+        client.declare(name, numel, dtype, compression=comp)
+        for name, numel, dtype, comp in specs])
+
+
+def host_buffer(numel: int, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    """A flat host buffer that lives as long as its declared tensor: the
+    D2H destination, the array the core sums and pulls into in place, and
+    the H2D source. Pinned for a card, so copies to and from it run
+    asynchronously; reused only after its handle was waited."""
+    return torch.empty(numel, dtype=dtype, pin_memory=pin)
+
+
+def push_host(client, tid: int, buf: torch.Tensor, average: bool) -> int:
+    """Enqueue the push_pull of host buffer ``buf``; the core sums into
+    it in place. Returns the handle."""
+    return client.push_pull(tid, _numpy_view(buf), average=average,
+                            dtype=_dtype_name(buf))
+
+
+def ready_event(t: torch.Tensor):
+    """An event on the stream current for ``t``'s device (in a gradient
+    hook, the stream that produced the gradient); None on the CPU."""
+    if not t.is_cuda:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return ev
+
+
+def copy_to_host(pairs, ready, copy_stream):
+    """Queue the D2H copies of ``pairs`` (device source, host buffer) on
+    ``copy_stream`` behind the events in ``ready``, and return the event
+    that marks them done; the calling thread does not wait. Each source
+    is marked in use by the copy stream, so the caching allocator does not
+    give its memory to the compute stream (after ``zero_grad``, or when a
+    cast temporary dies) before the copy has read it. On the CPU
+    (``copy_stream`` None) the copies run at once and None is returned."""
+    if copy_stream is None:
+        for src, dst in pairs:
+            dst.copy_(src.reshape(-1))
+        return None
+    for ev in ready:
+        copy_stream.wait_event(ev)
+    with torch.cuda.stream(copy_stream):
+        for src, dst in pairs:
+            dst.copy_(src.reshape(-1), non_blocking=True)
+            src.record_stream(copy_stream)
+        done = torch.cuda.Event()
+        done.record(copy_stream)
+    return done
+
+
+def copy_from_host(pairs, copy_stream) -> None:
+    """Queue the H2D copies of ``pairs`` (host buffer, device destination
+    of the buffer's first ``numel`` elements) on ``copy_stream``. The
+    caller's stream waits for ``copy_stream`` before it reads a
+    destination."""
+    if copy_stream is None:
+        for src, dst in pairs:
+            dst.copy_(src[:dst.numel()].view(dst.shape))
+        return
+    with torch.cuda.stream(copy_stream):
+        for src, dst in pairs:
+            src = src[:dst.numel()].view(dst.shape)
+            if src.dtype != dst.dtype:
+                src = src.to(dst.device, non_blocking=True)
+            dst.copy_(src, non_blocking=True)
+
+
+class Stager:
+    """One daemon thread that runs queued jobs in FIFO order: the leg
+    between a gradient's D2H copy and the core's push queue, so that a
+    gradient hook only launches device work and never blocks. ``join``
+    returns once every job queued so far has run (the overlapped steps'
+    effects barrier) and raises the first error a job let escape."""
+
+    def __init__(self, name: str):
+        self._jobs: queue.Queue = queue.Queue()
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def submit(self, fn, *args) -> None:
+        self._jobs.put((fn, args))
+
+    def join(self) -> None:
+        self._jobs.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def close(self) -> None:
+        self._jobs.put(None)
+        self._thread.join(timeout=60)
+
+    def _run(self) -> None:
+        while True:
+            job = self._jobs.get()
+            try:
+                if job is None:
+                    return
+                fn, args = job
+                fn(*args)
+            except Exception as e:  # noqa: BLE001 (the thread must live on)
+                traceback.print_exc()
+                if self._error is None:
+                    self._error = e
+            finally:
+                self._jobs.task_done()

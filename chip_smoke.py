@@ -26,7 +26,17 @@ Phases, each of which raises on failure:
    logits agree with the same weights under plain attention;
 4. PS mode: a scheduler and one CPU server (python -m
    byteps_tpu_torch.server) as child processes, this process as worker 0,
-   the same steps from the same weights; the losses must equal phase 3's.
+   the same steps from the same weights: first make_train_step alone
+   (pushes after backward; the server holds only its tensors), then six
+   PS paths, one step of each in turns: make_train_step again, and the
+   overlapped paths, make_overlapped_train_step with the f32 and the bf16
+   wire, make_bucketed_overlap_step with hook-driven (multi) and
+   post-backward (single) buckets, and a DistributedOptimizer(AdamW)
+   loop. Each must launch the three training kernels 12 times a step and
+   match phase 3's losses (rtol 1e-5; the bf16 wire within the bound in
+   ``_losses_match``), and the hook-driven ones must have enqueued pushes
+   before backward() returned; their step times, exposed communication
+   and share of bytes pushed before backward() returned are reported.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -476,11 +486,7 @@ def _train(label):
         losses.append(loss.item())
         staging.append(dict(ps.last_timings))
     launches = dict(fa.LAUNCHES)
-    for name, want in (("fwd_lse", 12 * STEPS), ("bwd_dq", 12 * STEPS),
-                       ("bwd_dkv", 12 * STEPS), ("fwd", 0)):
-        if launches[name] != want:
-            raise AssertionError(f"{label}: {name} launched "
-                                 f"{launches[name]} times, expected {want}")
+    _check_launches(label, launches)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: non-finite losses {losses}")
     log(f"{label}: losses {losses} step ms {[round(t, 1) for t in times]}")
@@ -600,6 +606,169 @@ def _free_port():
     return port
 
 
+def _check_launches(label, launches):
+    for name, want in (("fwd_lse", 12 * STEPS), ("bwd_dq", 12 * STEPS),
+                       ("bwd_dkv", 12 * STEPS), ("fwd", 0)):
+        if launches[name] != want:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times, expected {want}")
+
+
+def _losses_match(label, losses, collective_losses, wire="float32"):
+    """With one worker the PS sum is the gradient itself, so an f32 wire
+    gives phase 3's losses to rtol 1e-5. The bf16 wire rounds each
+    gradient once a step (relative error <= 2^-8); AdamW's update
+    m / sqrt(v) takes a ratio of two such values, so each element of the
+    update moves by at most ~1.5 x 2^-8 of itself, and the loss, to first
+    order, by that share of how far the updates have moved it: the bound
+    is 2^-7 |L_1 - L_k| (the bf16 epsilon) + 1e-5 |L_k|. The first loss
+    comes before any update and is held to rtol 1e-5."""
+    for a, b in zip(losses, collective_losses):
+        moved = abs(collective_losses[0] - b)
+        bound = 1e-5 * abs(b) + (2.0 ** -7 * moved if wire == "bfloat16"
+                                 else 0.0)
+        if not abs(a - b) <= bound:
+            raise AssertionError(f"{label} losses {losses} != collective "
+                                 f"{collective_losses} ({wire} wire bound)")
+
+
+PS_PATHS = ("ps", "overlap_f32", "overlap_bf16", "bucketed_multi",
+            "bucketed_single", "distributed_optimizer")
+
+
+def _ps_path(label):
+    """A model with the seed-0 weights, phase 3's AdamW and the step of
+    one PS path: ``ps`` is make_train_step (push after backward), the
+    others overlap the pushes with backward or pipeline them by bucket."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.bucketed import make_bucketed_overlap_step
+    from byteps_tpu_torch.overlap import make_overlapped_train_step
+    from byteps_tpu_torch.training import make_train_step
+
+    model = _model()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    if label == "ps":
+        bps.broadcast_parameters(model.state_dict(), root_rank=0)
+        # tensors of its own, new to the server as the other paths' are
+        # (the plain run before the turns used the default prefix)
+        return model, make_train_step(_loss_fn, opt, ps_prefix="ps_turns")
+    if label.startswith("overlap"):
+        return model, make_overlapped_train_step(
+            _loss_fn, opt, prefix=label,
+            wire_dtype="bfloat16" if label == "overlap_bf16" else "float32")
+    if label.startswith("bucketed"):
+        return model, make_bucketed_overlap_step(
+            _loss_fn, opt, multi_program=label == "bucketed_multi",
+            prefix=label)
+    dopt = bps.DistributedOptimizer(opt)
+
+    def step(model, tokens):
+        dopt.zero_grad()
+        t0 = time.perf_counter()
+        loss = _loss_fn(model, tokens)
+        loss.backward()
+        t_bwd = time.perf_counter()
+        dopt.step()
+        step.timings = dict(dopt.timings, start=t0, backward=t_bwd)
+        return loss.detach()
+    return model, step
+
+
+def _overlap_record(t):
+    """One step's host clock readings (start, backward() returned, each
+    push enqueued with its bytes, the last pull waited) as offsets."""
+    pushes = t["pushes"]
+    return {
+        "backward_ms": (t["backward"] - t["start"]) * 1e3,
+        "first_push_ms": (min(ts for ts, _ in pushes) - t["start"]) * 1e3,
+        "last_push_ms": (max(ts for ts, _ in pushes) - t["start"]) * 1e3,
+        "landed_ms": (t["landed"] - t["start"]) * 1e3,
+        # communication the step waits for after backward() returned
+        "exposed_ms": (t["landed"] - t["backward"]) * 1e3,
+        "pushes": len(pushes),
+        "bytes": sum(n for _, n in pushes),
+        "bytes_before_backward": sum(n for ts, n in pushes
+                                     if ts < t["backward"]),
+    }
+
+
+def _ps_paths_in_turns(collective_losses):
+    """STEPS steps of every PS path from the seed-0 weights, in turns: each
+    round runs one step of each path, starting one path later than the
+    round before, so that a fleet whose round trip drifts over the run
+    weighs on every path alike. The launch counts are set to 0 just before
+    each step and read just after, and summed per path."""
+    import gc
+
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import ps
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    paths = {label: _ps_path(label) for label in PS_PATHS}
+    n_params = len(list(paths["ps"][0].parameters()))
+    tokens = _tokens(bps.device())
+    rec = {label: {"losses": [], "step_ms": [], "steps": [], "staging": [],
+                   "launches": dict.fromkeys(fa.LAUNCHES, 0)}
+           for label in paths}
+    torch.cuda.synchronize()
+    for r in range(STEPS):
+        for label in PS_PATHS[r % len(PS_PATHS):] + PS_PATHS[
+                :r % len(PS_PATHS)]:
+            model, step = paths[label]
+            out = rec[label]
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            loss = step(model, tokens)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            for k, v in fa.LAUNCHES.items():
+                out["launches"][k] += v
+            out["losses"].append(loss.item())
+            if label == "ps":
+                out["staging"].append(dict(ps.last_timings))
+            else:
+                out["steps"].append(_overlap_record(step.timings))
+    for _, step in paths.values():
+        if hasattr(step, "close"):
+            step.close()
+    del paths, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, out in rec.items():
+        losses, times, steps = out["losses"], out["step_ms"], out["steps"]
+        _check_launches(label, out["launches"])
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: non-finite losses {losses}")
+        _losses_match(label, losses, collective_losses,
+                      "bfloat16" if label == "overlap_bf16" else "float32")
+        out["median_step_ms"] = sorted(times[1:])[len(times[1:]) // 2]
+        log(f"{label}: losses {losses} step ms "
+            f"{[round(x, 1) for x in times]}")
+        if label == "ps":
+            continue
+        if any(s["pushes"] != n_params for s in steps):
+            raise AssertionError(f"{label}: pushes per step {steps}, "
+                                 f"expected one for each of the "
+                                 f"{n_params} parameters")
+        timed = steps[1:]  # the first step pays one-time set-up
+        before = sum(s["bytes_before_backward"] for s in timed)
+        if label != "bucketed_single" and before == 0:
+            raise AssertionError(f"{label}: no push was enqueued before "
+                                 f"backward() returned: {timed}")
+        out["exposed_ms_median"] = sorted(
+            s["exposed_ms"] for s in timed)[len(timed) // 2]
+        out["pushed_before_backward_share"] = before / sum(
+            s["bytes"] for s in timed)
+        log(f"{label}: exposed ms "
+            f"{[round(s['exposed_ms'], 1) for s in steps]} pushed before "
+            f"backward {out['pushed_before_backward_share']:.3f}")
+    return rec
+
+
 def ps_phase(collective_losses):
     import torch
 
@@ -631,8 +800,14 @@ def ps_phase(collective_losses):
             if (bps.rank(), bps.size()) != (0, 1):
                 raise AssertionError(f"PS rank/size {bps.rank()}/"
                                      f"{bps.size()}")
+            # the plain step first, while the server holds its tensors
+            # alone, then every path in turns
             model, _, _, losses, times, staging, launches = _train("ps")
             del model
+            _losses_match("ps", losses, collective_losses)
+            alone = {"losses": losses, "step_ms": times, "staging": staging,
+                     "launches": launches}
+            paths = _ps_paths_in_turns(collective_losses)
         finally:
             bps.shutdown()
         for role, out, p in children:
@@ -650,11 +825,7 @@ def ps_phase(collective_losses):
             if p.returncode != 0 and tail:
                 log(f"--- {role} log ---\n{tail}")
     torch.cuda.empty_cache()
-    for a, b in zip(losses, collective_losses):
-        if abs(a - b) > 1e-5 * abs(b):
-            raise AssertionError(f"PS losses {losses} != collective "
-                                 f"{collective_losses} (rtol 1e-5)")
-    return losses, times, staging, launches
+    return alone, paths
 
 
 # --- main ---------------------------------------------------------------------
@@ -695,9 +866,18 @@ def main() -> int:
     sass = tensor_core_sass()
     errors, timing = kernel_phase()
     coll_losses, coll_times, coll_launches, profile = collective_phase()
-    ps_losses, ps_times, ps_staging, ps_launches = ps_phase(coll_losses)
+    alone, paths = ps_phase(coll_losses)
+    plain = paths.pop("ps")
 
     warm = slice(1, None)  # the first step pays one-time set-up
+
+    def median(xs):
+        return sorted(xs[warm])[len(xs[warm]) // 2]
+
+    def staging_ms(run):
+        return {"step": median(run["step_ms"]),
+                **{k: median([s[k] * 1e3 for s in run["staging"]])
+                   for k in ("d2h_s", "core_s", "h2d_s")}}
     summary = {
         "build_s": build_s,
         "tensor_core_kernels": sass,
@@ -705,15 +885,32 @@ def main() -> int:
                        "median_step_ms": sorted(coll_times[warm])[
                            len(coll_times[warm]) // 2],
                        "launches": coll_launches, "profile": profile},
-        "ps": {"losses": ps_losses, "step_ms": ps_times,
+        "ps": {**{k: v for k, v in alone.items() if k != "staging"},
+               "median_step_ms": median(alone["step_ms"]),
                "staging_ms": [{k: v * 1e3 for k, v in s.items()}
-                              for s in ps_staging],
-               "launches": ps_launches},
+                              for s in alone["staging"]]},
+        "ps_in_turns": {**{k: v for k, v in plain.items()
+                           if k not in ("staging", "steps")},
+                        "staging_ms": [{k: v * 1e3 for k, v in s.items()}
+                                       for s in plain["staging"]]},
+        "ps_overlap": paths,
+        "ps_paths_median_ms": {
+            "plain_alone": staging_ms(alone),
+            "plain": staging_ms(plain),
+            **{label: {"step": o["median_step_ms"],
+                       "exposed": o["exposed_ms_median"],
+                       "pushed_before_backward_share":
+                           o["pushed_before_backward_share"]}
+               for label, o in paths.items()}},
         "sdpa_fwd_bwd_ms": timing["sdpa_fwd_bwd_ms"],
         "bwd_pair": timing["bwd_pair"],
         "kernel_errors": errors,
         "kernel_readings": timing["readings"],
     }
+    log("PS paths, median of steps 2-4 (ms; plain_alone: the plain step "
+        "before the others, plain: in turns with them; their D2H / core / "
+        "H2D):",
+        json.dumps(summary["ps_paths_median_ms"]))
     print(json.dumps(summary))
     kernels = []
     for name, (fn, replaces) in REPLACES.items():

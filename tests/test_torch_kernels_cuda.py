@@ -1,4 +1,5 @@
-"""The port's CUDA flash-attention kernels against their plain versions.
+"""The port's CUDA flash-attention kernels against their plain versions,
+and the overlapped PS step's copy-stream path against the plain step.
 
 Needs a CUDA card (the kernels have no CPU mode); skips elsewhere. This
 file imports torch and the port only, so it also runs on a GPU machine
@@ -167,3 +168,95 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k = torch.zeros((1, 8, 1, 64), device="cuda"), torch.zeros(1, 8, 1, 64)
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         fa.flash_fwd(q, k, k, True, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["overlap_float32", "overlap_bfloat16",
+                                  "overlap_int8", "bucketed_multi",
+                                  "bucketed_single",
+                                  "distributed_optimizer_bfloat16"])
+def test_overlapped_step_on_the_card_matches_plain_step(monkeypatch, path):
+    """The hook -> copy stream -> event -> stager path on the card, with
+    the loopback client of ``tests/ps_loopback.py`` (one worker: the sum
+    is the gradient): three SGD steps of a small flash-attention LM,
+    each held to the plain gradient at the same parameters (a second
+    model loaded with them before the step). The LM computes in f32, so
+    the two forwards agree (losses to 1e-6 relative); each update equals
+    lr times the plain gradient within the wire's rounding of it
+    (``tests/wire_bound.py``'s ``assert_step_near``: nothing for f32, 2^-8
+    of each element for bf16, half an int8 step of its block) plus 1e-4
+    of it for the f32 arithmetic and the update's own rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the copy stream and events")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ps_loopback import LoopbackClient, init_loopback
+    from wire_bound import assert_step_near
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.bucketed import make_bucketed_overlap_step
+    from byteps_tpu_torch.models import TransformerLM, lm_loss
+    from byteps_tpu_torch.overlap import make_overlapped_train_step
+
+    def loss_fn(model, tokens):
+        return lm_loss(model(tokens), tokens)
+
+    client = LoopbackClient()
+    init_loopback(monkeypatch, client, device="cuda")
+    try:
+        cfg = dict(vocab_size=128, num_layers=2, d_model=64, num_heads=4,
+                   mlp_dim=128, max_len=64, dtype=torch.float32,
+                   attn_impl="flash")
+        model, ref = (TransformerLM(
+            **cfg, generator=torch.Generator().manual_seed(0))
+            for _ in range(2))
+        lr = 0.1
+        opt = torch.optim.SGD(model.parameters(), lr=lr)
+        kind, wire = path.rsplit("_", 1)
+        if kind == "overlap":
+            step = make_overlapped_train_step(loss_fn, opt, wire_dtype=wire)
+        elif kind == "bucketed":
+            step = make_bucketed_overlap_step(
+                loss_fn, opt, n_buckets=3, multi_program=wire == "multi")
+        else:
+            dopt = bps.DistributedOptimizer(
+                opt, compression=bps.Compression.bf16)
+
+            def step(model, tokens):
+                dopt.zero_grad()
+                loss = loss_fn(model, tokens)
+                loss.backward()
+                dopt.step()
+                return loss.detach()
+            step.close = dopt._taps.close
+        wire = wire if wire in ("bfloat16", "int8") else "float32"
+        tokens = torch.randint(0, 128, (4, 64),
+                               generator=torch.Generator().manual_seed(1)
+                               ).cuda()
+        fa.reset_launches()
+        shares = []
+        for t in range(3):
+            before = {k: v.clone() for k, v in model.state_dict().items()}
+            ref.load_state_dict(before)
+            ref.zero_grad(set_to_none=True)
+            want = loss_fn(ref, tokens)
+            want.backward()
+            loss = step(model, tokens).item()
+            assert abs(loss - want.item()) <= 1e-6 * abs(want.item()), (
+                t, loss, want.item())
+            shares.append(assert_step_near(
+                f"{path} step {t}", before, model.state_dict(),
+                {n: p.grad for n, p in ref.named_parameters()}, lr, wire))
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["bwd_dkv"] == 2 * 3 * 2  # both models' layers
+        n = len(list(model.parameters()))
+        assert sorted(client.pushes) == sorted(list(range(n)) * 3)
+        if path != "bucketed_single":
+            assert all(t.startswith("bps_stager")
+                       for t in client.push_threads)
+        print(f"{path}: share of the wire bound taken by a step "
+              f"{max(shares):.3f}")
+        step.close()
+    finally:
+        bps.shutdown()
