@@ -1,13 +1,17 @@
-"""The data-parallel training step.
+"""The data-parallel training steps.
 
-Counterpart of ``make_train_step`` / ``_make_ps_train_step`` in
-``byteps_tpu/jax/training.py``. The step runs backward, reduces the
-gradients, and applies the optimizer:
+Counterpart of ``make_train_step`` / ``_make_ps_train_step`` and
+``make_async_train_step`` in ``byteps_tpu/jax/training.py``. The
+synchronous step runs backward, reduces the gradients, and applies the
+optimizer:
 
 - collective mode: the compression cast, the hierarchical all-reduce over
   the local process group, the cast back;
 - PS mode: the local reduce, the compression cast, the host round trip
   through the CPU parameter servers (``ps_push_pull``), the cast back.
+
+The asynchronous step (PS mode only) applies the optimizer locally and
+pushes the parameters' change to servers that hold the parameters.
 
 PyTorch runs eagerly, so there is nothing to jit or donate; the optimizer
 updates the parameters in place. ``replicate`` and ``shard_batch`` have no
@@ -83,5 +87,60 @@ def make_train_step(
             dist.all_reduce(loss, group=group)
             loss = loss / _h.group_size(group)
         return loss
+
+    return step
+
+
+def make_async_train_step(
+    loss_fn: Callable,
+    optimizer: torch.optim.Optimizer,
+    model,
+    *,
+    prefix: str = "aparam",
+):
+    """Asynchronous PS training (``BYTEPS_ENABLE_ASYNC=1`` on the fleet):
+    the servers hold the parameters; each worker, at its own pace and with
+    no per-round barrier, takes a local optimizer step, pushes the change
+    of the parameters and pulls whatever they are now (stale gradients by
+    design).
+
+    Call on every worker with identical parameters before training: rank
+    0's parameters (those in ``optimizer.param_groups``) seed the servers'
+    copy through ``ps.ps_broadcast``. Returns ``step(batch) -> loss``:
+    ``loss_fn(model, batch)``, backward, ``optimizer.step()``, the delta
+    ``p_after - p_before`` pushed with ``async_mode=True`` and summed into
+    the servers' copy, and the pulled copy written into the parameters.
+    """
+    from byteps_tpu_torch import ps as _ps
+
+    if bps._st().ps_client is None:
+        raise RuntimeError(
+            "make_async_train_step needs PS mode (DMLC_NUM_SERVER>0)")
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    # The deltas must land on the keys the seed initialised: both trees
+    # have the parameters' shapes and dtypes and go through the same
+    # prefix, so ps._tids gives them the same wire names (and the same
+    # cached ids). Keys of their own would start from zero on the
+    # servers, and the first delta would become the parameters.
+    seeded = _ps.ps_broadcast([p.detach() for p in params], root_rank=0,
+                              prefix=prefix)
+    with torch.no_grad():
+        for p, s in zip(params, seeded):
+            p.copy_(s)
+
+    def step(batch) -> torch.Tensor:
+        before = [p.detach().clone() for p in params]
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            deltas = [p - b for p, b in zip(params, before)]
+        fresh = _ps.ps_push_pull(deltas, average=False, prefix=prefix,
+                                 async_mode=True)
+        with torch.no_grad():
+            for p, f in zip(params, fresh):
+                p.copy_(f)
+        return loss.detach()
 
     return step

@@ -36,7 +36,16 @@ Phases, each of which raises on failure:
    match phase 3's losses (rtol 1e-5; the bf16 wire within the bound in
    ``_losses_match``), and the hook-driven ones must have enqueued pushes
    before backward() returned; their step times, exposed communication
-   and share of bytes pushed before backward() returned are reported.
+   and share of bytes pushed before backward() returned are reported;
+5. ResNet-50 (224 x 224, 1000 classes, batch 256, bf16, SGD(0.1, momentum
+   0.9), seed-0 weights, bench.py's images) through every one-worker
+   path, STEPS steps each: collective make_stateful_train_step (then one
+   profiled step), the same step in PS mode, DistributedOptimizer with
+   the f32 and the bf16 wire (one hook per parameter, 161 a step), and
+   make_async_train_step against a fleet started with
+   BYTEPS_ENABLE_ASYNC=1; losses and BatchNorm running averages held to
+   the collective path's, no flash kernel launched; then VGG-16 in
+   collective mode, 2 steps of batch 64.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -45,6 +54,7 @@ is not available or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -439,6 +449,12 @@ def kernel_phase():
 
 # --- phases 3 and 4: the main path -------------------------------------------
 
+def _median(xs):
+    """Median of the steps after the first, which pays one-time set-up."""
+    xs = sorted(xs[1:])
+    return xs[len(xs) // 2]
+
+
 def _tokens(device):
     import numpy as np
     import torch
@@ -493,21 +509,66 @@ def _train(label):
     return model, step, tokens, losses, times, staging, launches
 
 
-def _profile_step(step, model, tokens):
-    """One more training step under torch.profiler: device time by kernel
-    family. The profiler slows the host, so its wall time is reported
-    beside the busy time and the idle share is taken against the
-    unprofiled step time by the caller."""
+def _profile_step(run):
+    """Three more training steps, ``run()``. The first is timed on the
+    host: the time ``run()`` takes to return (the host enqueueing the
+    step) against the time to the synchronize after it; the two are close
+    when the host sets the step. The second measures the card's own time
+    for the step: the card sleeps (``torch.cuda._sleep``) while the host
+    enqueues the whole step behind it, so CUDA events around the step time
+    its kernels back to back, with no wait for the host (unless the step
+    itself waits for the card: ``device_ms_exact``); 1 - that time / the
+    unprofiled step is the idle share. The third runs under
+    torch.profiler (CUDA activity): device time by kernel family, the
+    union of the kernels' intervals and their span. The profiler can lose
+    kernels (ResNet-50's profile kept a fifth of the card's time), so
+    ``profiled_share`` (union / the card's time) says how much of the step
+    the families cover. The caller adds the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    host = {"enqueue_ms": (t1 - t0) * 1e3,
+            "step_ms": (time.perf_counter() - t0) * 1e3}
+    before, start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+    before.record()
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s at the H100's clocks
+    start.record()
+    t0 = time.perf_counter()
+    run()
+    host["enqueue_behind_sleep_ms"] = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end)
+    # Exact when the host enqueued the whole step while the card slept. A
+    # step that waits for the card inside (a host-device sync) leaves the
+    # card idle while the host enqueues the rest; device_ms then counts
+    # that idle time too, and the idle share is a lower bound.
+    host["sleep_ms"] = before.elapsed_time(start)
+    host["device_ms_exact"] = (host["enqueue_behind_sleep_ms"]
+                               < host["sleep_ms"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(model, tokens)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "#" not in ev.name)
+    union_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            union_us += b - a
+            end = b
+        elif b > end:
+            union_us += b - end
+            end = b
     by_name = {}
     for ev in prof.events():
         # device-side events, without the ranges that record_function
@@ -516,13 +577,20 @@ def _profile_step(step, model, tokens):
                 and "#" not in ev.name):
             by_name[ev.name] = (by_name.get(ev.name, 0.0)
                                 + ev.time_range.elapsed_us())
-    families = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    families = dict.fromkeys(("flash_attention", "convolution", "matmul",
+                              "reduction", "elementwise", "other"), 0.0)
     for name, us in by_name.items():
         low = name.lower()
         if "fa_fwd_" in name or "fa_bwd_" in name:
             families["flash_attention"] += us
+        elif any(k in low for k in ("fprop", "dgrad", "wgrad", "conv")):
+            families["convolution"] += us
         elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
             families["matmul"] += us
+        elif "reduce" in low:
+            families["reduction"] += us
+        elif "elementwise" in low:
+            families["elementwise"] += us
         else:
             families["other"] += us
     busy = sum(families.values())
@@ -531,7 +599,12 @@ def _profile_step(step, model, tokens):
              for k in ("fa_fwd_wgmma_kernel", "fa_fwd_kernel",
                        "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel",
                        "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel")}
-    return {"profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    return {"host_timed_step": host, "device_ms": device_ms,
+            "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_union_ms": union_us / 1e3, "device_events": len(spans),
+            "device_span_ms": (spans[-1][1] - spans[0][0]) / 1e3
+            if spans else 0.0,
+            "profiled_share": union_us / 1e3 / device_ms,
             "family_ms": {k: v / 1e3 for k, v in families.items()},
             "flash_kernel_ms": flash,
             "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
@@ -577,7 +650,7 @@ def collective_phase():
         del ref, logits
         # the breakdown PERF.md reports: a profiler that fails, or sees no
         # device time, fails the run
-        profile = _profile_step(step, model, tokens)
+        profile = _profile_step(lambda: step(model, tokens))
         if not profile["family_ms"]["flash_attention"] > 0:
             raise AssertionError(f"profile shows no flash-attention "
                                  f"device time: {profile}")
@@ -588,8 +661,7 @@ def collective_phase():
             if not profile["flash_kernel_ms"][name] > 0:
                 raise AssertionError(f"profile shows no {name}: "
                                      f"{profile['flash_kernel_ms']}")
-        step_ms = sorted(times[1:])[len(times[1:]) // 2]
-        profile["idle_share"] = 1.0 - profile["device_busy_ms"] / step_ms
+        profile["idle_share"] = 1.0 - profile["device_ms"] / _median(times)
         log("collective step profile:", json.dumps(profile))
         del model
     finally:
@@ -616,13 +688,17 @@ def _check_launches(label, launches):
 
 def _losses_match(label, losses, collective_losses, wire="float32"):
     """With one worker the PS sum is the gradient itself, so an f32 wire
-    gives phase 3's losses to rtol 1e-5. The bf16 wire rounds each
+    gives the collective losses to rtol 1e-5. The bf16 wire rounds each
     gradient once a step (relative error <= 2^-8); AdamW's update
     m / sqrt(v) takes a ratio of two such values, so each element of the
-    update moves by at most ~1.5 x 2^-8 of itself, and the loss, to first
-    order, by that share of how far the updates have moved it: the bound
-    is 2^-7 |L_1 - L_k| (the bf16 epsilon) + 1e-5 |L_k|. The first loss
-    comes before any update and is held to rtol 1e-5."""
+    update moves by at most ~1.5 x 2^-8 of itself; SGD with momentum sums
+    the rounded gradients, so an element of its update moves by at most
+    2^-8 of the sum of their magnitudes, which is the update's own size
+    where the element's gradients keep their sign over the few steps on
+    one batch. The loss, to first order, moves by that share of how far
+    the updates have moved it: the bound is 2^-7 |L_1 - L_k| (the bf16
+    epsilon) + 1e-5 |L_k|. The first loss comes before any update and is
+    held to rtol 1e-5."""
     for a, b in zip(losses, collective_losses):
         moved = abs(collective_losses[0] - b)
         bound = 1e-5 * abs(b) + (2.0 ** -7 * moved if wire == "bfloat16"
@@ -745,7 +821,7 @@ def _ps_paths_in_turns(collective_losses):
             raise AssertionError(f"{label}: non-finite losses {losses}")
         _losses_match(label, losses, collective_losses,
                       "bfloat16" if label == "overlap_bf16" else "float32")
-        out["median_step_ms"] = sorted(times[1:])[len(times[1:]) // 2]
+        out["median_step_ms"] = _median(times)
         log(f"{label}: losses {losses} step ms "
             f"{[round(x, 1) for x in times]}")
         if label == "ps":
@@ -769,11 +845,13 @@ def _ps_paths_in_turns(collective_losses):
     return rec
 
 
-def ps_phase(collective_losses):
-    import torch
-
-    import byteps_tpu_torch as bps
-
+@contextlib.contextmanager
+def _fleet(extra=None):
+    """A scheduler and one CPU server (python -m byteps_tpu_torch.server)
+    as child processes, with this process's environment set for worker 0
+    of one; ``extra`` is added to every role's environment. On leaving,
+    the children must exit 0 (after the worker's bps.shutdown()); the
+    environment is restored and no child is left running."""
     env = dict(os.environ)
     env.update({
         "DMLC_PS_ROOT_URI": "127.0.0.1",
@@ -783,18 +861,45 @@ def ps_phase(collective_losses):
         "PS_HEARTBEAT_INTERVAL": "1",
         "BYTEPS_PS_MODE": "ps",
         "PYTHONPATH": HERE + os.pathsep + env.get("PYTHONPATH", ""),
+        **(extra or {}),
     })
     logdir = tempfile.mkdtemp(prefix="chip_smoke_ps_")
     children = []
-    for role in ("scheduler", "server"):
-        out = open(os.path.join(logdir, f"{role}.log"), "w")
-        children.append((role, out, subprocess.Popen(
-            [sys.executable, "-m", "byteps_tpu_torch.server"],
-            env=dict(env, DMLC_ROLE=role), cwd=HERE, stdout=out,
-            stderr=subprocess.STDOUT)))
-    os.environ.update(env)
-    os.environ.update({"DMLC_ROLE": "worker", "DMLC_WORKER_ID": "0"})
+    saved = dict(os.environ)
     try:
+        for role in ("scheduler", "server"):
+            out = open(os.path.join(logdir, f"{role}.log"), "w")
+            children.append((role, out, subprocess.Popen(
+                [sys.executable, "-m", "byteps_tpu_torch.server"],
+                env=dict(env, DMLC_ROLE=role), cwd=HERE, stdout=out,
+                stderr=subprocess.STDOUT)))
+        os.environ.update(env)
+        os.environ.update({"DMLC_ROLE": "worker", "DMLC_WORKER_ID": "0"})
+        yield
+        for role, out, p in children:
+            p.wait(timeout=60)
+            if p.returncode != 0:
+                raise AssertionError(f"{role} exited {p.returncode}")
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+        for role, out, p in children:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+            with open(out.name) as f:
+                tail = f.read()[-2000:]
+            if p.returncode != 0 and tail:
+                log(f"--- {role} log ---\n{tail}")
+
+
+def ps_phase(collective_losses):
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    with _fleet():
         bps.init()
         try:
             if (bps.rank(), bps.size()) != (0, 1):
@@ -810,22 +915,294 @@ def ps_phase(collective_losses):
             paths = _ps_paths_in_turns(collective_losses)
         finally:
             bps.shutdown()
-        for role, out, p in children:
-            p.wait(timeout=60)
-            if p.returncode != 0:
-                raise AssertionError(f"{role} exited {p.returncode}")
-    finally:
-        for role, out, p in children:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            out.close()
-            with open(out.name) as f:
-                tail = f.read()[-2000:]
-            if p.returncode != 0 and tail:
-                log(f"--- {role} log ---\n{tail}")
     torch.cuda.empty_cache()
     return alone, paths
+
+
+# --- phase 5: ResNet-50 and VGG-16 -------------------------------------------
+
+IMAGE, IMAGE_BATCH, VGG_BATCH, VGG_STEPS = 224, 256, 64, 2
+
+
+def _images(batch, device):
+    """bench.py's ResNet batch: NHWC images from N(0, 1) and labels in
+    [0, 1000) from default_rng(0), the images handed over as NCHW (a
+    channels_last view of the same array)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((batch, IMAGE, IMAGE, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, batch)
+    return (torch.from_numpy(x).permute(0, 3, 1, 2).to(device),
+            torch.from_numpy(y).to(device))
+
+
+def _resnet():
+    import torch
+
+    from byteps_tpu_torch.models import ResNet50
+    return ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0))
+
+
+def _resnet_step(label, model):
+    """``run(batch) -> loss`` of one ResNet-50 path with bench.py's
+    SGD(0.1, momentum 0.9): ``collective`` and ``ps`` are
+    make_stateful_train_step, ``collective_bf16`` the same with the bf16
+    compression (the gradients rounded to bf16 and back, the arithmetic
+    of the bf16 wire with one worker), ``collective_async`` the same with
+    each step's parameters rewritten as p_before + (p_after - p_before)
+    in f32 (the arithmetic of the async servers with one worker, which
+    add the pushed change to their copy); ``dopt_f32`` / ``dopt_bf16`` a
+    user loop around DistributedOptimizer (f32 or bf16 wire), which keeps
+    its host clock readings in ``run.timings``; ``async``
+    make_async_train_step (which seeds the servers here, before any timed
+    step)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.stateful import (cross_entropy_loss,
+                                           make_stateful_train_step)
+    from byteps_tpu_torch.training import make_async_train_step
+
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    if label in ("collective", "ps"):
+        return make_stateful_train_step(model, opt, ps_prefix="resnet_grad")
+    if label == "collective_bf16":
+        return make_stateful_train_step(model, opt,
+                                        compression=bps.Compression.bf16)
+    if label == "collective_async":
+        step = make_stateful_train_step(model, opt)
+
+        def run_seed_plus_delta(batch):
+            before = [p.detach().clone() for p in model.parameters()]
+            loss = step(batch)
+            with torch.no_grad():
+                for p, b in zip(model.parameters(), before):
+                    p.copy_(b + (p - b))
+            return loss
+        return run_seed_plus_delta
+    if label == "async":
+        step = make_async_train_step(
+            lambda m, b: cross_entropy_loss(m(b[0]), b[1]), opt, model,
+            prefix="resnet_aparam")
+
+        def run_async(batch):
+            model.train()
+            return step(batch)
+        return run_async
+    dopt = bps.DistributedOptimizer(
+        opt, compression=(bps.Compression.bf16 if label == "dopt_bf16"
+                          else bps.Compression.none))
+
+    def run(batch):
+        x, y = batch
+        model.train()
+        dopt.zero_grad()
+        t0 = time.perf_counter()
+        loss = cross_entropy_loss(model(x), y)
+        loss.backward()
+        t_bwd = time.perf_counter()
+        dopt.step()
+        run.timings = dict(dopt.timings, start=t0, backward=t_bwd)
+        return loss.detach()
+    run.close = dopt._taps.close
+    return run
+
+
+def _resnet_paths(labels, batch, keep=False):
+    """STEPS steps of each path in ``labels``, in turns (each round one
+    step of each, starting one path later than the round before), each
+    from its own seed-0 model. The flash kernels' launch counts are set to
+    0 just before each step and read just after. Records the losses, step
+    times, PS staging (``ps.last_timings``), the overlap's host clock
+    readings, and the BatchNorm buffers after the last step. With
+    ``keep`` the models and steps are returned too."""
+    import torch
+
+    from byteps_tpu_torch import ps
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    paths = {}
+    for label in labels:
+        model = _resnet()
+        paths[label] = (model, _resnet_step(label, model))
+    rec = {label: {"losses": [], "step_ms": [], "staging": [], "steps": [],
+                   "launches": 0} for label in labels}
+    torch.cuda.synchronize()
+    for r in range(STEPS):
+        for label in labels[r % len(labels):] + labels[:r % len(labels)]:
+            model, run = paths[label]
+            out = rec[label]
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            loss = run(batch)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["launches"] += sum(fa.LAUNCHES.values())
+            out["losses"].append(loss.item())
+            if label in ("ps", "async"):
+                out["staging"].append(dict(ps.last_timings))
+            elif label.startswith("dopt"):
+                out["steps"].append(_overlap_record(run.timings))
+    for label, (model, run) in paths.items():
+        rec[label]["stats"] = [b.clone() for b in model.buffers()]
+        if hasattr(run, "close"):
+            run.close()
+    if keep:
+        return rec, paths
+    del paths, model, run
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _stats_match(label, rec, ref):
+    """The BatchNorm running averages after STEPS steps against a path
+    that does the same arithmetic, leaf by leaf in the max norm: within
+    1e-5 of the leaf's largest value (the losses' rtol)."""
+    for i, (s, r) in enumerate(zip(rec["stats"], ref["stats"])):
+        bound = 1e-5 * r.abs().max().item()
+        err = (s - r).abs().max().item()
+        if not err <= bound:
+            raise AssertionError(f"{label}: BatchNorm buffer {i} differs "
+                                 f"from the collective path's by {err} > "
+                                 f"{bound}")
+
+
+def _resnet_summary(label, out, n_params):
+    """Checks the path's launches and overlap records; returns its
+    readings: step ms, images/s, staging split or exposed communication
+    (medians of steps 2-STEPS)."""
+    if out["launches"]:
+        raise AssertionError(f"resnet50 {label}: {out['launches']} flash "
+                             f"kernel launches, expected none")
+    step = _median(out["step_ms"])
+    got = {"losses": out["losses"], "step_ms": out["step_ms"],
+           "median_step_ms": step, "images_per_s": IMAGE_BATCH / step * 1e3}
+    if out["staging"]:
+        got["staging_ms"] = {k: _median([t[k] * 1e3 for t in out["staging"]])
+                             for k in ("d2h_s", "core_s", "h2d_s")}
+    if out["steps"]:
+        steps = out["steps"]
+        if any(t["pushes"] != n_params for t in steps):
+            raise AssertionError(f"resnet50 {label}: pushes per step "
+                                 f"{[t['pushes'] for t in steps]}, expected "
+                                 f"{n_params} (one hook each)")
+        timed = steps[1:]
+        before = sum(t["bytes_before_backward"] for t in timed)
+        if before == 0:
+            raise AssertionError(f"resnet50 {label}: no push was enqueued "
+                                 f"before backward() returned: {timed}")
+        got.update(
+            backward_ms=_median([t["backward_ms"] for t in steps]),
+            exposed_ms=_median([t["exposed_ms"] for t in steps]),
+            pushed_before_backward_share=before / sum(t["bytes"]
+                                                      for t in timed),
+            bytes_per_step=steps[-1]["bytes"])
+    log(f"resnet50 {label}: losses {out['losses']} step ms "
+        f"{[round(x, 1) for x in out['step_ms']]}")
+    return got
+
+
+def resnet_phase():
+    """ResNet-50 at 224 x 224, 1000 classes, batch 256, bf16, seed-0
+    weights, through every one-worker training path (STEPS steps each):
+    (a) collective make_stateful_train_step, then one profiled step, in
+    turns with the same step under the bf16 compression (a') and with
+    the async servers' arithmetic (a'');
+    (b) the same step in PS mode and (c) DistributedOptimizer (f32 wire,
+    one hook per parameter) in turns in one fleet; (d)
+    DistributedOptimizer with the bf16 wire in a fleet of its own (its
+    tensors have (c)'s names and another dtype); (e) make_async_train_step
+    in a fleet started with BYTEPS_ENABLE_ASYNC=1. (b) and (c) must equal
+    (a)'s losses to rtol 1e-5, (d) (a')'s and (e) (a'')'s; (d) and (a')
+    must lie within the bf16 bound of (a)'s; the BatchNorm running
+    averages must agree with those of the path of the same arithmetic
+    (``_stats_match``). (a'') and (e) differ from (a) where a weight's
+    p + (p' - p) rounds to another f32 value than p', which the bf16
+    forward can carry to a bf16 ulp of the weight: their distance from
+    (a)'s losses is reported, not held to a bound. Then VGG-16
+    in collective mode, VGG_STEPS steps of batch VGG_BATCH. cuDNN is held
+    to deterministic algorithms, so that the paths compute the same
+    forward and backward."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import VGG16
+    from byteps_tpu_torch.stateful import make_stateful_train_step
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    os.environ["BYTEPS_PS_MODE"] = "collective"
+    bps.init()
+    try:
+        batch = _images(IMAGE_BATCH, bps.device())
+        torch.cuda.reset_peak_memory_stats()
+        rec, paths = _resnet_paths(
+            ("collective", "collective_bf16", "collective_async"), batch,
+            keep=True)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model, run = paths["collective"]
+        n_params = len(list(model.parameters()))
+        profile = _profile_step(lambda: run(batch))
+        profile["idle_share"] = 1.0 - profile["device_ms"] / _median(
+            rec["collective"]["step_ms"])
+        log("resnet50 collective step profile:", json.dumps(profile))
+        del paths, model, run
+
+        vgg = VGG16(num_classes=1000, dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0))
+        vgg_step = make_stateful_train_step(
+            vgg, torch.optim.SGD(vgg.parameters(), lr=0.1, momentum=0.9),
+            has_batch_stats=False)
+        vgg_batch = (batch[0][:VGG_BATCH], batch[1][:VGG_BATCH])
+        vgg_rec = {"losses": [], "step_ms": [],
+                   "params": sum(p.numel() for p in vgg.parameters())}
+        for _ in range(VGG_STEPS):
+            t0 = time.perf_counter()
+            vgg_rec["losses"].append(vgg_step(vgg_batch).item())
+            torch.cuda.synchronize()
+            vgg_rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if not all(math.isfinite(x) for x in vgg_rec["losses"]):
+            raise AssertionError(f"vgg16: losses {vgg_rec['losses']}")
+        log(f"vgg16: {vgg_rec}")
+        del vgg, vgg_step
+    finally:
+        bps.shutdown()
+    torch.cuda.empty_cache()
+
+    for labels, extra in ((("ps", "dopt_f32"), None), (("dopt_bf16",), None),
+                          (("async",), {"BYTEPS_ENABLE_ASYNC": "1"})):
+        with _fleet(extra):
+            bps.init()
+            try:
+                batch = _images(IMAGE_BATCH, bps.device())
+                rec.update(_resnet_paths(labels, batch))
+            finally:
+                bps.shutdown()
+        torch.cuda.empty_cache()
+
+    ref = rec["collective"]
+    if not all(math.isfinite(x) for x in ref["losses"]):
+        raise AssertionError(f"resnet50 collective: losses {ref['losses']}")
+    summary = {}
+    same_arithmetic = {"ps": "collective", "dopt_f32": "collective",
+                       "dopt_bf16": "collective_bf16",
+                       "async": "collective_async"}
+    for label, out in rec.items():
+        if label in same_arithmetic:
+            same = rec[same_arithmetic[label]]
+            _losses_match(f"resnet50 {label}", out["losses"], same["losses"])
+            _stats_match(f"resnet50 {label}", out, same)
+        if label.endswith("bf16"):
+            _losses_match(f"resnet50 {label}", out["losses"], ref["losses"],
+                          "bfloat16")
+        summary[label] = _resnet_summary(label, out, n_params)
+        summary[label]["max_loss_rel_diff_to_collective"] = max(
+            abs(a - b) / abs(b) for a, b in zip(out["losses"],
+                                                ref["losses"]))
+    summary["collective"].update(profile=profile, peak_memory_gb=peak_gb)
+    return {"resnet50": summary, "vgg16": vgg_rec}
 
 
 # --- main ---------------------------------------------------------------------
@@ -868,25 +1245,20 @@ def main() -> int:
     coll_losses, coll_times, coll_launches, profile = collective_phase()
     alone, paths = ps_phase(coll_losses)
     plain = paths.pop("ps")
-
-    warm = slice(1, None)  # the first step pays one-time set-up
-
-    def median(xs):
-        return sorted(xs[warm])[len(xs[warm]) // 2]
+    images = resnet_phase()
 
     def staging_ms(run):
-        return {"step": median(run["step_ms"]),
-                **{k: median([s[k] * 1e3 for s in run["staging"]])
+        return {"step": _median(run["step_ms"]),
+                **{k: _median([s[k] * 1e3 for s in run["staging"]])
                    for k in ("d2h_s", "core_s", "h2d_s")}}
     summary = {
         "build_s": build_s,
         "tensor_core_kernels": sass,
         "collective": {"losses": coll_losses, "step_ms": coll_times,
-                       "median_step_ms": sorted(coll_times[warm])[
-                           len(coll_times[warm]) // 2],
+                       "median_step_ms": _median(coll_times),
                        "launches": coll_launches, "profile": profile},
         "ps": {**{k: v for k, v in alone.items() if k != "staging"},
-               "median_step_ms": median(alone["step_ms"]),
+               "median_step_ms": _median(alone["step_ms"]),
                "staging_ms": [{k: v * 1e3 for k, v in s.items()}
                               for s in alone["staging"]]},
         "ps_in_turns": {**{k: v for k, v in plain.items()
@@ -902,6 +1274,7 @@ def main() -> int:
                        "pushed_before_backward_share":
                            o["pushed_before_backward_share"]}
                for label, o in paths.items()}},
+        **images,
         "sdpa_fwd_bwd_ms": timing["sdpa_fwd_bwd_ms"],
         "bwd_pair": timing["bwd_pair"],
         "kernel_errors": errors,
@@ -911,6 +1284,10 @@ def main() -> int:
         "before the others, plain: in turns with them; their D2H / core / "
         "H2D):",
         json.dumps(summary["ps_paths_median_ms"]))
+    log("ResNet-50 paths, median of steps 2-4:", json.dumps({
+        label: {k: v for k, v in r.items()
+                if k not in ("losses", "step_ms", "profile")}
+        for label, r in images["resnet50"].items()}))
     print(json.dumps(summary))
     kernels = []
     for name, (fn, replaces) in REPLACES.items():
