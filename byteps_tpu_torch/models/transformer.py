@@ -1,13 +1,16 @@
-"""GPT-style decoder LM, the model the port's main path trains.
+"""The transformer family: the GPT-style decoder LM and the BERT-style
+encoder with its MLM head.
 
 Counterpart of ``byteps_tpu/models/transformer.py`` (``MultiHeadAttention``,
-``TransformerLayer``, ``TransformerLM``, ``GPT2Small``, ``lm_loss``) with
-the numerics of its flax modules: parameters in f32, products in ``dtype``
-(bfloat16 by default) with both operands cast before the product, layer
-norms in f32 with eps 1e-6, the tanh approximation of GELU, a bf16
-residual stream, and weight-tied f32 logits. ``from_flax`` moves a flax
-parameter tree over, so the two versions can be held against each other
-on the same weights.
+``TransformerLayer``, ``TransformerEncoder``, ``TransformerLM``,
+``BertBase``, ``BertLarge``, ``GPT2Small``, ``GPT2Medium``,
+``masked_lm_loss``, ``lm_loss``) with the numerics of its flax modules:
+parameters in f32, products in ``dtype`` (bfloat16 by default) with both
+operands cast before the product, layer norms in f32 with eps 1e-6, the
+tanh approximation of GELU, a bf16 residual stream, and f32 logits
+(weight-tied in the decoder, an f32 ``mlm_out`` in the encoder).
+``from_flax`` moves a flax parameter tree over, so the two versions can be
+held against each other on the same weights.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ from byteps_tpu_torch.parallel.ring_attention import full_attention
 _LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
 
 
-def _attention_fn(impl: str) -> Callable:
+def _attention_fn(impl: str, sp_axis: Optional[str] = None) -> Callable:
+    if sp_axis is not None:
+        raise ValueError(f"sp_axis={sp_axis!r}: sequence parallelism is not "
+                         f"ported yet")
     if impl == "flash":
         from byteps_tpu_torch.ops.flash_attention import flash_attention
         return flash_attention
@@ -44,25 +50,29 @@ def _normal(shape, std: float, generator: torch.Generator) -> nn.Parameter:
 
 class Dense(nn.Module):
     """flax ``Dense`` / ``DenseGeneral``: ``kernel [*in_shape, *out_shape]``
-    and ``bias [*out_shape]`` in f32; input and kernel are cast to
-    ``dtype`` before the product and the bias is added in ``dtype``."""
+    and, with ``use_bias``, ``bias [*out_shape]`` in f32; input and kernel
+    are cast to ``dtype`` before the product and the bias is added in
+    ``dtype``."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
-                 dtype: torch.dtype, generator: torch.Generator):
+                 dtype: torch.dtype, generator: torch.Generator,
+                 use_bias: bool = True):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
         fan_in = math.prod(self.in_shape)
         self.kernel = _normal((*self.in_shape, *self.out_shape),
                               1.0 / math.sqrt(fan_in), generator)
-        self.bias = nn.Parameter(torch.zeros(self.out_shape))
+        self.bias = (nn.Parameter(torch.zeros(self.out_shape)) if use_bias
+                     else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:x.dim() - len(self.in_shape)]
         n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
         y = (x.reshape(*lead, n_in).to(self.dtype)
              @ self.kernel.reshape(n_in, n_out).to(self.dtype))
-        y = y + self.bias.reshape(n_out).to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.reshape(n_out).to(self.dtype)
         return y.reshape(*lead, *self.out_shape)
 
 
@@ -178,8 +188,74 @@ class TransformerLM(nn.Module):
         return self.tok_embed.attend(x.to(self.dtype)).float()
 
 
+class TransformerEncoder(nn.Module):
+    """BERT-style bidirectional encoder with an MLM head; returns MLM
+    logits [batch, seq, vocab] in f32. The head is ``mlm_dense`` in
+    ``dtype``, GELU, ``mlm_ln`` in f32 and ``mlm_out`` in f32 (not tied).
+    Parameters are drawn and placed as in ``TransformerLM``."""
+
+    def __init__(self, vocab_size: int = 30522, num_layers: int = 12,
+                 d_model: int = 768, num_heads: int = 12,
+                 mlp_dim: int = 3072, max_len: int = 512,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "full",
+                 generator: Optional[torch.Generator] = None,
+                 device: "torch.device | str | None" = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.max_len = max_len
+        self.tok_embed = Embed(vocab_size, d_model, dtype, generator)
+        self.pos_embed = Embed(max_len, d_model, dtype, generator)
+        self.layers = nn.ModuleList([
+            TransformerLayer(d_model, num_heads, mlp_dim, dtype, False,
+                             attn_impl, generator)
+            for _ in range(num_layers)])
+        self.final_ln = LayerNorm(d_model)
+        self.mlm_dense = Dense((d_model,), (d_model,), dtype, generator)
+        self.mlm_ln = LayerNorm(d_model)
+        self.mlm_out = Dense((d_model,), (vocab_size,), torch.float32,
+                             generator)
+        self.to(resolve_device(device))
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if positions is None:
+            # flax clamps a position past the table; a CUDA lookup traps
+            if tokens.shape[1] > self.max_len:
+                raise ValueError(f"sequence length {tokens.shape[1]} "
+                                 f"exceeds max_len={self.max_len}")
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device)[None, :]
+        x = self.tok_embed(tokens) + self.pos_embed(positions)
+        for layer in self.layers:
+            x = layer(x)
+        x = self.final_ln(x)
+        x = F.gelu(self.mlm_dense(x), approximate="tanh")
+        return self.mlm_out(self.mlm_ln(x))
+
+
+# BERT sizes per the original paper; BERT-Large MLM is the reference's
+# second headline benchmark.
+BertBase = partial(TransformerEncoder, num_layers=12, d_model=768,
+                   num_heads=12, mlp_dim=3072)
+BertLarge = partial(TransformerEncoder, num_layers=24, d_model=1024,
+                    num_heads=16, mlp_dim=4096)
 GPT2Small = partial(TransformerLM, num_layers=12, d_model=768, num_heads=12,
                     mlp_dim=3072)
+GPT2Medium = partial(TransformerLM, num_layers=24, d_model=1024,
+                     num_heads=16, mlp_dim=4096)
+
+
+def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the positions where ``mask`` is 1 (MLM),
+    divided by max(mask.sum(), 1)."""
+    v = logits.shape[-1]
+    nll = F.cross_entropy(logits.reshape(-1, v).float(), labels.reshape(-1),
+                          reduction="none")
+    mask = mask.reshape(-1).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -201,26 +277,32 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A ``TransformerLM`` state_dict from the flax module's parameter tree
-    (nested dicts of numpy arrays, with or without the ``params`` level).
+    """A ``TransformerLM``, ``TransformerEncoder`` or ``LlamaModel``
+    state_dict from the flax module's parameter tree (nested dicts of
+    numpy arrays, with or without the ``params`` level).
 
     Names map one to one: ``layer_i/LayerNorm_k/...`` becomes
-    ``layers.i.ln_k...`` and every other ``/`` a ``.``; kernels keep the
-    flax layout (``query/kernel [d, h, hd]``, ``out/kernel [h, hd, d]``,
-    ``mlp_in/kernel [d, mlp]``), so no tensor is transposed.
+    ``layers.i.ln_k...`` and every other ``/`` a ``.`` (``final_ln``,
+    ``mlm_dense``, ``mlm_ln``, ``mlm_out``, ``attn/q`` keep their names);
+    kernels keep the flax layout (``query/kernel [d, h, hd]``,
+    ``out/kernel [h, hd, d]``, ``mlp_in/kernel [d, mlp]``), so no tensor
+    is transposed.
     """
     if set(params) == {"params"}:
         params = params["params"]
-    sd = {}
-    for key, arr in _flatten(params).items():
-        parts = []
-        for p in key.split("/"):
-            if p.startswith("layer_"):
-                parts += ["layers", p[len("layer_"):]]
-            elif p.startswith("LayerNorm_"):
-                parts.append("ln_" + p[len("LayerNorm_"):])
-            else:
-                parts.append(p)
-        sd[".".join(parts)] = torch.from_numpy(
-            np.array(arr, dtype=np.float32))
-    return sd
+    return {port_name(key): torch.from_numpy(np.array(arr, dtype=np.float32))
+            for key, arr in _flatten(params).items()}
+
+
+def port_name(flax_key: str) -> str:
+    """The state_dict name of a flax parameter path (``/``-joined, without
+    the ``params`` level), as ``from_flax`` maps it."""
+    parts = []
+    for p in flax_key.split("/"):
+        if p.startswith("layer_"):
+            parts += ["layers", p[len("layer_"):]]
+        elif p.startswith("LayerNorm_"):
+            parts.append("ln_" + p[len("LayerNorm_"):])
+        else:
+            parts.append(p)
+    return ".".join(parts)

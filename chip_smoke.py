@@ -11,14 +11,15 @@ Phases, each of which raises on failure:
    the tensor-core kernels (forward, dQ, dK/dV) must hold HGMMA (wgmma)
    instructions;
 2. kernels: each of the four CUDA kernels against its plain PyTorch
-   version on the card, at GPT-2 small's attention shapes (b 8, s 512,
-   h 12, d 64, bf16, causal), on f32 cases (unaligned s 600, rectangular
-   causal 100 x 260, sliding window 64 at s 300) and on the same shape
-   classes in bf16 and f16 (plus non-causal 96 x 96); at GPT-2's shapes
-   each timed beside its plain version, PyTorch's
-   scaled_dot_product_attention, and its bound (device time from CUDA
-   graph replays, the kernels and SDPA's forward and backward in turns
-   over 5 windows);
+   version on the card, at the attention shapes of the main paths (GPT-2
+   small: b 8, s 512, h 12, d 64, bf16, causal; BERT-Large: b 32, s 128,
+   h 16, d 64, bf16, non-causal; Llama-1B: b 4, s 2048, h 32, d 64, bf16,
+   causal), on f32 cases (unaligned s 600, rectangular causal 100 x 260,
+   sliding window 64 at s 300) and on the same shape classes in bf16 and
+   f16 (plus non-causal 96 x 96); at the main paths' shapes each timed
+   beside its plain version, PyTorch's scaled_dot_product_attention, and
+   its bound (device time from CUDA graph replays, the kernels and SDPA's
+   forward and backward in turns over 5 windows);
 3. collective mode: GPT2Small(attn_impl="flash") at full width trains a
    few steps of 8 x 512 tokens through init -> make_train_step with
    AdamW, then runs one evaluation forward under no_grad; the launch
@@ -45,7 +46,21 @@ Phases, each of which raises on failure:
    make_async_train_step against a fleet started with
    BYTEPS_ENABLE_ASYNC=1; losses and BatchNorm running averages held to
    the collective path's, no flash kernel launched; then VGG-16 in
-   collective mode, 2 steps of batch 64.
+   collective mode, 2 steps of batch 64;
+6. BERT-Large MLM (BertLarge(flash, bf16), seq 128, batch 32, bench.py's
+   tokens and mask, AdamW(1e-4, weight decay 1e-4)): collective
+   make_train_step STEPS steps, an evaluation forward held to plain
+   attention, a profiled step and the f32 mlm_out's time; the plain PS
+   step and DistributedOptimizer in turns in one fleet, losses equal to
+   the collective path's (rtol 1e-5); each path launches the forward
+   with lse, dQ and dK/dV 24 times a step; then GPT-2 medium in
+   collective mode, 2 steps of 8 x 512;
+7. Llama-1B (Llama1B(flash, bf16), batch 4 x seq 2048, tokens from
+   default_rng(0), lm_loss, the same AdamW): collective STEPS steps, an
+   evaluation forward, a profiled step; the same with remat=True, 2
+   steps, losses equal to the bit and the forward launched 44 times a
+   step; the plain PS step, 3 steps on the f32 wire (4.1 GB each way),
+   losses equal to rtol 1e-5, with its D2H / core / H2D split.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -54,6 +69,7 @@ is not available or any phase fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib
 import json
@@ -298,6 +314,10 @@ def compare(dtype, what, got, want, mag, mag_dp=None):
 CASES = [
     # name, b, s_q, s_k, h, d, dtype, causal, window
     ("gpt2", BATCH, SEQ, SEQ, 12, 64, "bfloat16", True, None),
+    # BERT-Large MLM (phase 6): non-causal
+    ("bert_large", 32, 128, 128, 16, 64, "bfloat16", False, None),
+    # Llama-1B (phase 7): 32 query heads on K/V repeated from 4 KV heads
+    ("llama1b", 4, 2048, 2048, 32, 64, "bfloat16", True, None),
     # f32: the FMA kernels
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
@@ -313,6 +333,8 @@ CASES = [
         ("window64", 1, 300, 300, 2, 128, True, 64),
     ]
 ]
+# the main paths' shapes, timed beside their plain versions and SDPA
+TIMED = ("gpt2", "bert_large", "llama1b")
 
 
 def kernel_phase():
@@ -369,9 +391,9 @@ def kernel_phase():
         readings[case] = detail
         log(f"kernel case {case}: " + json.dumps(detail))
 
-        if case != "gpt2":
+        if case not in TIMED:
             continue
-        # Times at the main path's shapes: kernel, plain version, and
+        # Times at the main paths' shapes: kernel, plain version, and
         # PyTorch's SDPA (forward; backward of all three gradients, which
         # stands beside bwd_dq + bwd_dkv: no PyTorch call computes dQ
         # alone).
@@ -396,7 +418,7 @@ def kernel_phase():
         def sdpa():
             with torch.no_grad():
                 return F.scaled_dot_product_attention(qt, kt_, vt,
-                                                      is_causal=True)
+                                                      is_causal=causal)
         # SDPA's forward runs once, on the stream the graphs are captured
         # on, so that its backward alone is captured and timed
         cap = torch.cuda.Stream()
@@ -404,7 +426,8 @@ def kernel_phase():
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt_, vt))
         gout = do.transpose(1, 2)
         with torch.cuda.stream(cap):
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                 is_causal=causal)
 
         def sdpa_bwd():
             torch.autograd.grad(out, (qg, kg, vg), gout, retain_graph=True)
@@ -414,17 +437,19 @@ def kernel_phase():
                                  "sdpa_bwd": sdpa_bwd}, stream=cap)
 
         def sdpa_fwd_bwd():
-            o_ = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            o_ = F.scaled_dot_product_attention(qg, kg, vg,
+                                                is_causal=causal)
             torch.autograd.grad(o_, (qg, kg, vg), gout)
         sdpa_both = _time_ms(sdpa_fwd_bwd)
         library = {"fwd_lse": dev["sdpa_fwd"], "fwd": dev["sdpa_fwd"],
                    "bwd_dq": dev["sdpa_bwd"], "bwd_dkv": dev["sdpa_bwd"]}
         pairs = b * h * _live_pairs(s_q, s_k, causal, window)
+        timed = report[case] = {}
         for kname in kt:
             bound, by = _bound_ms(kname, b, h, s_q, s_k, d, elem, causal,
                                   window, dtype)
             ms, ms_min, ms_max = dev[kname]
-            report[kname] = {
+            timed[kname] = {
                 "ms": ms, "ms_spread": [ms_min, ms_max],
                 "eager_ms": _time_ms(kt[kname]),
                 "plain_ms": _time_ms(pt[kname], iters=5, warmup=1),
@@ -435,11 +460,15 @@ def kernel_phase():
                 / (ms * 1e-3) / 1e12,
                 "bound_share": bound / ms,
             }
-        report["bwd_pair"] = {
+        timed["bwd_pair"] = {
             "ms": dev["bwd_dq"][0] + dev["bwd_dkv"][0],
             "sdpa_bwd_ms": dev["sdpa_bwd"][0],
             "sdpa_bwd_ms_spread": list(dev["sdpa_bwd"][1:])}
-        report["sdpa_fwd_bwd_ms"] = sdpa_both
+        timed["sdpa_fwd_bwd_ms"] = sdpa_both
+        log(f"kernel times {case} (ms): " + json.dumps(
+            {kn: {x: t[x] for x in ("ms", "bound_ms", "plain_ms",
+                                    "library_ms")}
+             for kn, t in timed.items() if kn in kt}))
         del out, qg, kg, vg
     if failures:
         raise AssertionError("kernel phase failed:\n" + "\n".join(failures))
@@ -476,9 +505,19 @@ def _loss_fn(model, tokens):
     return lm_loss(model(tokens), tokens)
 
 
-def _train(label):
-    """init -> model -> make_train_step -> STEPS steps, launches counted
-    from zero over exactly the training steps."""
+# A language model the script trains: its constructor (``make(attn_impl,
+# **kw)``, seed-0 weights on the card), its batch (``batch(device)``, from
+# default_rng(0)), its loss, its number of attention layers (flash
+# launches per step), its (sequences, sequence length) a batch and its
+# vocabulary.
+LM = collections.namedtuple("LM", "name make batch loss layers shape vocab")
+GPT2 = LM("gpt2_small", _model, _tokens, _loss_fn, 12, (BATCH, SEQ), 50257)
+
+
+def _train(label, lm=GPT2, steps=STEPS, **make_kw):
+    """init -> model -> make_train_step with AdamW(1e-4, weight decay
+    1e-4) -> ``steps`` steps, launches counted from zero over exactly the
+    training steps, peak memory from just before the model is built."""
     import torch
 
     import byteps_tpu_torch as bps
@@ -486,27 +525,31 @@ def _train(label):
     from byteps_tpu_torch.training import make_train_step
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
-    model = _model()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.make(**make_kw)
     bps.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
-    step = make_train_step(_loss_fn, opt)
-    tokens = _tokens(bps.device())
+    step = make_train_step(lm.loss, opt)
+    batch = lm.batch(bps.device())
     torch.cuda.synchronize()
     losses, times, staging = [], [], []
     fa.reset_launches()
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
-        loss = step(model, tokens)
+        loss = step(model, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
         staging.append(dict(ps.last_timings))
     launches = dict(fa.LAUNCHES)
-    _check_launches(label, launches)
+    _check_launches(label, launches, lm.layers, steps,
+                    make_kw.get("remat", False))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: non-finite losses {losses}")
-    log(f"{label}: losses {losses} step ms {[round(t, 1) for t in times]}")
-    return model, step, tokens, losses, times, staging, launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{label}: losses {losses} step ms {[round(t, 1) for t in times]} "
+        f"peak {peak_gb:.2f} GB")
+    return model, step, batch, losses, times, staging, launches, peak_gb
 
 
 def _profile_step(run):
@@ -610,59 +653,71 @@ def _profile_step(run):
             "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
 
 
+def _evaluate(lm, model, tokens, small):
+    """One evaluation forward under no_grad at the full batch: the forward
+    kernel without lse once a layer and no other, finite logits of the
+    batch's shape; then the same weights under plain attention on
+    ``small`` tokens, whose logits must agree with the flash model's
+    within 0.1 (bf16 attention outputs may differ by an ulp, which the
+    residual stream carries to logits of order 1). Returns (launches,
+    the flash-vs-plain max abs error)."""
+    import torch
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    fa.reset_launches()
+    with torch.no_grad():
+        logits = model(tokens)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    if launches != {"fwd_lse": 0, "fwd": lm.layers, "bwd_dq": 0,
+                    "bwd_dkv": 0}:
+        raise AssertionError(f"{lm.name} evaluation launches {launches}")
+    if (tuple(logits.shape) != (*tokens.shape, lm.vocab)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{lm.name} evaluation logits: bad shape or "
+                             f"values")
+    del logits
+    ref = lm.make("full")
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        err = (model(small) - ref(small)).abs().max().item()
+    del ref
+    if err > 0.1:
+        raise AssertionError(f"{lm.name}: flash vs plain attention logits "
+                             f"differ by {err}")
+    log(f"{lm.name}: flash vs plain-attention logits max_abs_err {err:.3e}")
+    return launches, err
+
+
+def _profile_lm(label, step, model, batch, times):
+    """``_profile_step`` of a collective LM step (the breakdown PERF.md
+    reports: a profiler that fails, or sees no device time, fails the
+    run); with bf16 activations the forward, dQ and dK/dV must have run
+    on the tensor cores."""
+    profile = _profile_step(lambda: step(model, batch))
+    for name in ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
+                 "fa_bwd_dkv_wgmma_kernel"):
+        if not profile["flash_kernel_ms"][name] > 0:
+            raise AssertionError(f"{label}: profile shows no {name}: "
+                                 f"{profile['flash_kernel_ms']}")
+    profile["idle_share"] = 1.0 - profile["device_ms"] / _median(times)
+    log(f"{label} step profile:", json.dumps(profile))
+    return profile
+
+
 def collective_phase():
     import torch
 
     import byteps_tpu_torch as bps
-    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
     os.environ["BYTEPS_PS_MODE"] = "collective"
     bps.init()
     try:
-        model, step, tokens, losses, times, _, launches = _train(
+        model, step, tokens, losses, times, _, launches, _ = _train(
             "collective")
-        # evaluation forward: the forward kernel without lse, 12 launches
-        fa.reset_launches()
-        with torch.no_grad():
-            logits = model(tokens)
-        torch.cuda.synchronize()
-        eval_launches = dict(fa.LAUNCHES)
-        if eval_launches != {"fwd_lse": 0, "fwd": 12, "bwd_dq": 0,
-                             "bwd_dkv": 0}:
-            raise AssertionError(f"evaluation launches {eval_launches}")
-        if (tuple(logits.shape) != (BATCH, SEQ, 50257)
-                or not bool(torch.isfinite(logits).all())):
-            raise AssertionError("evaluation logits: bad shape or values")
-        launches["fwd"] = eval_launches["fwd"]
-        # the same trained weights under plain attention, on a small input
-        ref = _model("full")
-        ref.load_state_dict(model.state_dict())
-        small = tokens[:2, :128]
-        with torch.no_grad():
-            got, want = model(small), ref(small)
-        err = (got - want).abs().max().item()
-        # bf16 attention outputs may differ by an ulp, which the residual
-        # stream carries to the logits (order 1): 0.1 absolute
-        if err > 0.1:
-            raise AssertionError(f"flash vs plain attention logits differ "
-                                 f"by {err}")
-        log(f"flash vs plain-attention logits max_abs_err {err:.3e}")
-        del ref, logits
-        # the breakdown PERF.md reports: a profiler that fails, or sees no
-        # device time, fails the run
-        profile = _profile_step(lambda: step(model, tokens))
-        if not profile["family_ms"]["flash_attention"] > 0:
-            raise AssertionError(f"profile shows no flash-attention "
-                                 f"device time: {profile}")
-        # bf16 activations: the forward, dQ and dK/dV ran on the tensor
-        # cores
-        for name in ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
-                     "fa_bwd_dkv_wgmma_kernel"):
-            if not profile["flash_kernel_ms"][name] > 0:
-                raise AssertionError(f"profile shows no {name}: "
-                                     f"{profile['flash_kernel_ms']}")
-        profile["idle_share"] = 1.0 - profile["device_ms"] / _median(times)
-        log("collective step profile:", json.dumps(profile))
+        launches["fwd"] = _evaluate(GPT2, model, tokens,
+                                    tokens[:2, :128])[0]["fwd"]
+        profile = _profile_lm("collective", step, model, tokens, times)
         del model
     finally:
         bps.shutdown()
@@ -678,9 +733,15 @@ def _free_port():
     return port
 
 
-def _check_launches(label, launches):
-    for name, want in (("fwd_lse", 12 * STEPS), ("bwd_dq", 12 * STEPS),
-                       ("bwd_dkv", 12 * STEPS), ("fwd", 0)):
+def _check_launches(label, launches, layers=12, steps=STEPS, remat=False):
+    """Each attention layer launches the forward with lse, dQ and dK/dV
+    once a training step (the forward twice under remat: once more when
+    the backward recomputes the block), and the forward without lse
+    never."""
+    per_step = layers * steps
+    for name, want in (("fwd_lse", per_step * (2 if remat else 1)),
+                       ("bwd_dq", per_step), ("bwd_dkv", per_step),
+                       ("fwd", 0)):
         if launches[name] != want:
             raise AssertionError(f"{label}: {name} launched "
                                  f"{launches[name]} times, expected {want}")
@@ -712,7 +773,7 @@ PS_PATHS = ("ps", "overlap_f32", "overlap_bf16", "bucketed_multi",
             "bucketed_single", "distributed_optimizer")
 
 
-def _ps_path(label):
+def _ps_path(label, lm=GPT2):
     """A model with the seed-0 weights, phase 3's AdamW and the step of
     one PS path: ``ps`` is make_train_step (push after backward), the
     others overlap the pushes with backward or pipeline them by bucket."""
@@ -723,27 +784,27 @@ def _ps_path(label):
     from byteps_tpu_torch.overlap import make_overlapped_train_step
     from byteps_tpu_torch.training import make_train_step
 
-    model = _model()
+    model = lm.make()
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
     if label == "ps":
         bps.broadcast_parameters(model.state_dict(), root_rank=0)
         # tensors of its own, new to the server as the other paths' are
         # (the plain run before the turns used the default prefix)
-        return model, make_train_step(_loss_fn, opt, ps_prefix="ps_turns")
+        return model, make_train_step(lm.loss, opt, ps_prefix="ps_turns")
     if label.startswith("overlap"):
         return model, make_overlapped_train_step(
-            _loss_fn, opt, prefix=label,
+            lm.loss, opt, prefix=label,
             wire_dtype="bfloat16" if label == "overlap_bf16" else "float32")
     if label.startswith("bucketed"):
         return model, make_bucketed_overlap_step(
-            _loss_fn, opt, multi_program=label == "bucketed_multi",
+            lm.loss, opt, multi_program=label == "bucketed_multi",
             prefix=label)
     dopt = bps.DistributedOptimizer(opt)
 
     def step(model, tokens):
         dopt.zero_grad()
         t0 = time.perf_counter()
-        loss = _loss_fn(model, tokens)
+        loss = lm.loss(model, tokens)
         loss.backward()
         t_bwd = time.perf_counter()
         dopt.step()
@@ -770,12 +831,13 @@ def _overlap_record(t):
     }
 
 
-def _ps_paths_in_turns(collective_losses):
-    """STEPS steps of every PS path from the seed-0 weights, in turns: each
-    round runs one step of each path, starting one path later than the
-    round before, so that a fleet whose round trip drifts over the run
-    weighs on every path alike. The launch counts are set to 0 just before
-    each step and read just after, and summed per path."""
+def _ps_paths_in_turns(collective_losses, labels=PS_PATHS, lm=GPT2):
+    """STEPS steps of every PS path in ``labels`` from the seed-0 weights,
+    in turns: each round runs one step of each path, starting one path
+    later than the round before, so that a fleet whose round trip drifts
+    over the run weighs on every path alike. The launch counts are set to
+    0 just before each step and read just after, and summed per path.
+    ``peak_memory_gb`` holds every path's model at once."""
     import gc
 
     import torch
@@ -784,16 +846,16 @@ def _ps_paths_in_turns(collective_losses):
     from byteps_tpu_torch import ps
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
-    paths = {label: _ps_path(label) for label in PS_PATHS}
-    n_params = len(list(paths["ps"][0].parameters()))
-    tokens = _tokens(bps.device())
+    torch.cuda.reset_peak_memory_stats()
+    paths = {label: _ps_path(label, lm) for label in labels}
+    n_params = len(list(paths[labels[0]][0].parameters()))
+    tokens = lm.batch(bps.device())
     rec = {label: {"losses": [], "step_ms": [], "steps": [], "staging": [],
                    "launches": dict.fromkeys(fa.LAUNCHES, 0)}
            for label in paths}
     torch.cuda.synchronize()
     for r in range(STEPS):
-        for label in PS_PATHS[r % len(PS_PATHS):] + PS_PATHS[
-                :r % len(PS_PATHS)]:
+        for label in labels[r % len(labels):] + labels[:r % len(labels)]:
             model, step = paths[label]
             out = rec[label]
             fa.reset_launches()
@@ -808,6 +870,7 @@ def _ps_paths_in_turns(collective_losses):
                 out["staging"].append(dict(ps.last_timings))
             else:
                 out["steps"].append(_overlap_record(step.timings))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for _, step in paths.values():
         if hasattr(step, "close"):
             step.close()
@@ -816,7 +879,8 @@ def _ps_paths_in_turns(collective_losses):
     torch.cuda.empty_cache()
     for label, out in rec.items():
         losses, times, steps = out["losses"], out["step_ms"], out["steps"]
-        _check_launches(label, out["launches"])
+        out["peak_memory_gb"] = peak_gb
+        _check_launches(label, out["launches"], lm.layers)
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{label}: non-finite losses {losses}")
         _losses_match(label, losses, collective_losses,
@@ -907,7 +971,8 @@ def ps_phase(collective_losses):
                                      f"{bps.size()}")
             # the plain step first, while the server holds its tensors
             # alone, then every path in turns
-            model, _, _, losses, times, staging, launches = _train("ps")
+            model, _, _, losses, times, staging, launches, _ = _train(
+                "ps")
             del model
             _losses_match("ps", losses, collective_losses)
             alone = {"losses": losses, "step_ms": times, "staging": staging,
@@ -1205,6 +1270,244 @@ def resnet_phase():
     return {"resnet50": summary, "vgg16": vgg_rec}
 
 
+# --- phases 6 and 7: BERT-Large MLM, GPT-2 medium, Llama-1B -------------------
+
+BERT_SEQ, BERT_BATCH = 128, 32
+LLAMA_SEQ, LLAMA_BATCH, LLAMA_PS_STEPS, LLAMA_REMAT_STEPS = 2048, 4, 3, 2
+GPT2M_STEPS = 2
+
+
+def _bert(attn_impl="flash"):
+    import torch
+
+    from byteps_tpu_torch.models import BertLarge
+    return BertLarge(attn_impl=attn_impl, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0))
+
+
+def _bert_batch(device):
+    """bench.py's MLM batch: tokens in [0, 1000), then the mask in {0, 1},
+    from default_rng(0); the labels are the tokens."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, 1000, (BERT_BATCH, BERT_SEQ))
+    mask = rng.integers(0, 2, (BERT_BATCH, BERT_SEQ))
+    return (torch.from_numpy(tokens).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def _bert_loss(model, batch):
+    from byteps_tpu_torch.models import masked_lm_loss
+    tokens, mask = batch
+    return masked_lm_loss(model(tokens), tokens, mask)
+
+
+def _gpt2_medium(attn_impl="flash"):
+    import torch
+
+    from byteps_tpu_torch.models import GPT2Medium
+    return GPT2Medium(attn_impl=attn_impl,
+                      generator=torch.Generator().manual_seed(0))
+
+
+def _llama(attn_impl="flash", remat=False):
+    import torch
+
+    from byteps_tpu_torch.models import Llama1B
+    return Llama1B(attn_impl=attn_impl, dtype=torch.bfloat16, remat=remat,
+                   generator=torch.Generator().manual_seed(0))
+
+
+def _llama_tokens(device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(
+        0, 32000, (LLAMA_BATCH, LLAMA_SEQ))).to(device)
+
+
+BERT = LM("bert_large", _bert, _bert_batch, _bert_loss, 24,
+          (BERT_BATCH, BERT_SEQ), 30522)
+GPT2M = LM("gpt2_medium", _gpt2_medium, _tokens, _loss_fn, 24,
+           (BATCH, SEQ), 50257)
+LLAMA = LM("llama1b", _llama, _llama_tokens, _loss_fn, 22,
+           (LLAMA_BATCH, LLAMA_SEQ), 32000)
+
+
+def _summary(lm, losses, times, launches, peak_gb, **extra):
+    """One path's readings: its losses and step times, the median of
+    steps 2 on, sequences/s and tokens/s at that median, its launches
+    and peak memory."""
+    step = _median(times)
+    rows, seq = lm.shape
+    return {"losses": losses, "step_ms": times, "median_step_ms": step,
+            "sequences_per_s": rows / step * 1e3,
+            "tokens_per_s": rows * seq / step * 1e3, "launches": launches,
+            "peak_memory_gb": peak_gb, **extra}
+
+
+def _mlm_out_ms(model):
+    """Device ms of BERT's f32 ``mlm_out`` ([4096, 1024] x [1024, 30522]
+    on the FMA units, TF32 off), forward and backward, on the card."""
+    import torch
+    d, vocab = model.mlm_out.kernel.shape
+    x = torch.randn((BERT_BATCH, BERT_SEQ, d), device=model.mlm_out.kernel.device,
+                    requires_grad=True)
+    g = torch.randn((BERT_BATCH, BERT_SEQ, vocab), device=x.device)
+
+    def fwd_bwd():
+        torch.autograd.backward(model.mlm_out(x), g)
+    ms = _time_ms(fwd_bwd, iters=5, warmup=1)
+    model.zero_grad(set_to_none=True)
+    return ms
+
+
+def bert_phase():
+    """Phase 6. BertLarge(flash, bf16), seed-0 weights, seq 128, batch 32,
+    bench.py's MLM batch, AdamW(1e-4, weight decay 1e-4): (a) collective
+    make_train_step STEPS steps, one evaluation forward (held to plain
+    attention), one profiled step; (b) the plain PS step and (c) the PS
+    DistributedOptimizer (f32 wire, one hook per parameter) in turns in
+    one fleet, their losses equal to (a)'s to rtol 1e-5. Then GPT-2
+    medium in collective mode, GPT2M_STEPS steps of 8 x 512, a run
+    check."""
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    os.environ["BYTEPS_PS_MODE"] = "collective"
+    bps.init()
+    try:
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: mlm_out would not be f32")
+        model, step, batch, losses, times, _, launches, peak_gb = _train(
+            "bert_large collective", BERT)
+        n_params = sum(p.numel() for p in model.parameters())
+        eval_launches, err = _evaluate(BERT, model, batch[0], batch[0][:2])
+        launches["fwd"] = eval_launches["fwd"]
+        profile = _profile_lm("bert_large collective", step, model, batch,
+                              times)
+        mlm_ms = _mlm_out_ms(model)
+        log(f"bert_large mlm_out f32 fwd+bwd {mlm_ms:.2f} ms")
+        coll = _summary(BERT, losses, times, launches, peak_gb,
+                        params=n_params, profile=profile,
+                        flash_vs_plain_max_abs_err=err,
+                        mlm_out_fwd_bwd_ms=mlm_ms,
+                        mlm_out_share=mlm_ms / profile["device_ms"])
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+        model, step, _, m_losses, m_times, _, m_launches, m_peak = _train(
+            "gpt2_medium collective", GPT2M, steps=GPT2M_STEPS)
+        medium = _summary(GPT2M, m_losses, m_times, m_launches, m_peak,
+                          params=sum(p.numel() for p in model.parameters()))
+        del model, step
+    finally:
+        bps.shutdown()
+    torch.cuda.empty_cache()
+
+    with _fleet():
+        bps.init()
+        try:
+            paths = _ps_paths_in_turns(losses, ("ps", "distributed_optimizer"),
+                                       BERT)
+        finally:
+            bps.shutdown()
+    torch.cuda.empty_cache()
+    out = {"collective": coll}
+    for label, p in paths.items():
+        out[label] = _summary(
+            BERT, p["losses"], p["step_ms"], p["launches"],
+            p["peak_memory_gb"],
+            # the card does (a)'s work a step; the rest of the step it
+            # waits for the round trip
+            idle_share_vs_collective_card_ms=1.0 - profile["device_ms"]
+            / _median(p["step_ms"]),
+            **{k: p[k] for k in ("exposed_ms_median",
+                                 "pushed_before_backward_share") if k in p},
+            **({"staging_ms": {k: _median([t[k] * 1e3 for t in p["staging"]])
+                               for k in ("d2h_s", "core_s", "h2d_s")}}
+               if p["staging"] else {}))
+    log("BERT-Large paths, median of steps 2-4:", json.dumps({
+        label: {k: v for k, v in r.items()
+                if k not in ("losses", "step_ms", "profile")}
+        for label, r in out.items()}))
+    return {"bert_large": out, "gpt2_medium": medium}
+
+
+def llama_phase():
+    """Phase 7. Llama1B(flash, bf16), seed-0 weights, batch 4 x seq 2048,
+    tokens in [0, 32000) from default_rng(0), lm_loss, AdamW(1e-4, weight
+    decay 1e-4): (a) collective make_train_step STEPS steps, one
+    evaluation forward (held to plain attention on 256 tokens), one
+    profiled step; (a') the same from the same weights with remat=True,
+    LLAMA_REMAT_STEPS steps, its losses equal to (a)'s to the bit (the
+    kernels are deterministic) with the forward kernel launched twice a
+    layer; (b) the plain PS step, LLAMA_PS_STEPS steps on the f32 wire,
+    its losses equal to (a)'s to rtol 1e-5, with its D2H / core / H2D
+    split."""
+    import gc
+
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    os.environ["BYTEPS_PS_MODE"] = "collective"
+    bps.init()
+    try:
+        model, step, batch, losses, times, _, launches, peak_gb = _train(
+            "llama1b collective", LLAMA)
+        n_params = sum(p.numel() for p in model.parameters())
+        eval_launches, err = _evaluate(LLAMA, model, batch, batch[:1, :256])
+        launches["fwd"] = eval_launches["fwd"]
+        profile = _profile_lm("llama1b collective", step, model, batch,
+                              times)
+        coll = _summary(LLAMA, losses, times, launches, peak_gb,
+                        params=n_params, profile=profile,
+                        flash_vs_plain_max_abs_err=err)
+        del model, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model, step, _, r_losses, r_times, _, r_launches, r_peak = _train(
+            "llama1b remat", LLAMA, steps=LLAMA_REMAT_STEPS, remat=True)
+        if r_losses != losses[:LLAMA_REMAT_STEPS]:
+            raise AssertionError(f"llama1b remat losses {r_losses} != "
+                                 f"{losses[:LLAMA_REMAT_STEPS]}")
+        remat = _summary(LLAMA, r_losses, r_times, r_launches, r_peak)
+        del model, step
+        gc.collect()
+    finally:
+        bps.shutdown()
+    torch.cuda.empty_cache()
+
+    with _fleet():
+        bps.init()
+        try:
+            model, _, _, p_losses, p_times, staging, p_launches, p_peak = (
+                _train("llama1b ps", LLAMA, steps=LLAMA_PS_STEPS))
+            del model
+            gc.collect()
+        finally:
+            bps.shutdown()
+    torch.cuda.empty_cache()
+    _losses_match("llama1b ps", p_losses, losses)
+    ps_out = _summary(
+        LLAMA, p_losses, p_times, p_launches, p_peak,
+        idle_share_vs_collective_card_ms=1.0 - profile["device_ms"]
+        / _median(p_times),
+        staging_ms={k: _median([t[k] * 1e3 for t in staging])
+                    for k in ("d2h_s", "core_s", "h2d_s")},
+        wire_bytes_per_step=4 * n_params)
+    out = {"collective": coll, "remat": remat, "ps": ps_out}
+    log("Llama-1B paths, median of steps 2-n:", json.dumps({
+        label: {k: v for k, v in r.items()
+                if k not in ("losses", "step_ms", "profile")}
+        for label, r in out.items()}))
+    return {"llama1b": out}
+
+
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
@@ -1246,6 +1549,8 @@ def main() -> int:
     alone, paths = ps_phase(coll_losses)
     plain = paths.pop("ps")
     images = resnet_phase()
+    encoder = bert_phase()
+    llama = llama_phase()
 
     def staging_ms(run):
         return {"step": _median(run["step_ms"]),
@@ -1275,8 +1580,11 @@ def main() -> int:
                            o["pushed_before_backward_share"]}
                for label, o in paths.items()}},
         **images,
-        "sdpa_fwd_bwd_ms": timing["sdpa_fwd_bwd_ms"],
-        "bwd_pair": timing["bwd_pair"],
+        **encoder,
+        **llama,
+        "sdpa_fwd_bwd_ms": {case: timing[case]["sdpa_fwd_bwd_ms"]
+                            for case in TIMED},
+        "bwd_pair": {case: timing[case]["bwd_pair"] for case in TIMED},
         "kernel_errors": errors,
         "kernel_readings": timing["readings"],
     }
@@ -1289,13 +1597,24 @@ def main() -> int:
                 if k not in ("losses", "step_ms", "profile")}
         for label, r in images["resnet50"].items()}))
     print(json.dumps(summary))
+    # launches on each main path (its collective run: training steps, and
+    # for fwd its evaluation forward)
+    by_path = {"gpt2_small": coll_launches,
+               "bert_large": encoder["bert_large"]["collective"]["launches"],
+               "gpt2_medium": encoder["gpt2_medium"]["launches"],
+               "llama1b": llama["llama1b"]["collective"]["launches"],
+               "llama1b_remat": llama["llama1b"]["remat"]["launches"]}
     kernels = []
     for name, (fn, replaces) in REPLACES.items():
         kernels.append({
             "name": f"flash_attention.{name} ({fn})", "route": "cuda",
             "source": "byteps_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": coll_launches[name],
-            "max_abs_err": errors[name]["gpt2"], **timing[name]})
+            "max_abs_err": errors[name]["gpt2"], **timing["gpt2"][name],
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
+            "shapes": {case: {"max_abs_err": errors[name][case],
+                              **timing[case][name]}
+                       for case in TIMED if case != "gpt2"}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -86,6 +86,10 @@ def test_kernels_match_plain(case, dtype):
 TENSOR_CORE_CASES = {
     # b, s_q, s_k, h, d, causal, window
     "gpt2": (8, 512, 512, 12, 64, True, None),
+    # BERT-Large MLM (seq 128, batch 32), non-causal
+    "bert_large": (32, 128, 128, 16, 64, False, None),
+    # Llama-1B (seq 2048, batch 4, 32 query heads on GQA-repeated K/V)
+    "llama1b": (4, 2048, 2048, 32, 64, True, None),
     "d16_one_query": (2, 1, 77, 3, 16, True, None),
     "bh1000": (10, 130, 130, 100, 64, True, None),
 }
@@ -95,9 +99,10 @@ TENSOR_CORE_CASES = {
 @pytest.mark.parametrize("case", sorted(TENSOR_CORE_CASES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_tensor_core_forward_matches_plain(case, dtype):
-    """The bf16/f16 forward (wgmma, TMA) with and without lse, at GPT-2's
-    shapes, with a single query row, and with more (batch, head) pairs
-    than the card has SMs many times over."""
+    """The bf16/f16 forward (wgmma, TMA) with and without lse, at the
+    attention shapes of GPT-2, BERT-Large and Llama-1B, with a single
+    query row, and with more (batch, head) pairs than the card has SMs
+    many times over."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     b, s_q, s_k, h, d, causal, window = TENSOR_CORE_CASES[case]
@@ -260,3 +265,32 @@ def test_overlapped_step_on_the_card_matches_plain_step(monkeypatch, path):
         step.close()
     finally:
         bps.shutdown()
+
+
+@pytest.mark.cuda
+def test_llama_remat_step_on_the_card_is_bit_equal():
+    """A LlamaTiny (bf16, flash) training step on the card under remat
+    gives the same loss and gradients, bit for bit, as without: the
+    recomputed forward runs the same deterministic kernels (no atomics),
+    and the forward kernel with lse runs twice a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from byteps_tpu_torch.models import LlamaTiny, lm_loss
+
+    tokens = torch.randint(0, 1024, (2, 256),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    out = {}
+    for remat in (False, True):
+        model = LlamaTiny(attn_impl="flash", dtype=torch.bfloat16,
+                          remat=remat)
+        fa.reset_launches()
+        loss = lm_loss(model(tokens), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.item(), dict(fa.LAUNCHES),
+                      {k: p.grad for k, p in model.named_parameters()})
+    assert out[True][0] == out[False][0]
+    assert out[False][1]["fwd_lse"] == 2 and out[True][1]["fwd_lse"] == 4
+    assert out[True][1]["bwd_dkv"] == out[False][1]["bwd_dkv"] == 2
+    for k, g in out[False][2].items():
+        assert torch.equal(out[True][2][k], g), k
