@@ -4,7 +4,9 @@ Counterpart of ``byteps_tpu/jax/__init__.py``: ``init``, ``shutdown``,
 ``rank``/``size``/``local_rank``/``local_size``, ``push_pull`` (with
 ``push_pull_async``/``poll``/``synchronize``), ``declare_tensor``,
 ``broadcast_parameters``, ``broadcast_optimizer_state`` and
-``DistributedOptimizer``.
+``DistributedOptimizer``; and the in-place API of the reference's torch
+plugin: ``push_pull_inplace_``, ``push_pull_async_inplace_`` and
+``declare``.
 
 One process drives one GPU. The local process group (``torch.distributed``,
 NCCL on the card, gloo on the CPU) plays the part of the JAX mesh's ``ici``
@@ -36,7 +38,8 @@ from byteps_tpu_torch.partition import TensorRegistry
 __all__ = [
     "init", "shutdown", "initialized", "rank", "size", "local_rank",
     "local_size", "device", "push_pull", "push_pull_async", "poll",
-    "synchronize", "declare_tensor", "broadcast_parameters",
+    "synchronize", "push_pull_inplace_", "push_pull_async_inplace_",
+    "declare", "declare_tensor", "broadcast_parameters",
     "broadcast_optimizer_state", "DistributedOptimizer", "Compression",
 ]
 
@@ -214,7 +217,39 @@ def synchronize(handle: Handle):
     return handle.value
 
 
+def _write_back(tensor: torch.Tensor, average: bool, name: Optional[str]):
+    out = push_pull(tensor, average=average, name=name)
+    with torch.no_grad():
+        tensor.copy_(out)
+    return tensor
+
+
+def push_pull_async_inplace_(tensor: torch.Tensor, average: bool = True,
+                             name: Optional[str] = None) -> Handle:
+    """Non-blocking push_pull of one tensor whose result is written into
+    ``tensor``; ``synchronize`` of the handle waits for that and returns
+    ``tensor`` (reference: byteps.torch push_pull_async_inplace_)."""
+    st = _st()
+    if st.ps_client is not None:
+        from byteps_tpu_torch import ps as _ps
+        return Handle(_ps.submit_ordered(_write_back, tensor, average, name))
+    return Handle(_write_back(tensor, average, name))
+
+
+def push_pull_inplace_(tensor: torch.Tensor, average: bool = True,
+                       name: Optional[str] = None) -> torch.Tensor:
+    """Blocking push_pull of one tensor, written into ``tensor``, which is
+    returned (reference: byteps.torch push_pull_inplace_)."""
+    return synchronize(push_pull_async_inplace_(tensor, average, name))
+
+
 # --- declare / broadcast ----------------------------------------------------
+
+def declare(name: str, tensor: torch.Tensor) -> None:
+    """Pre-register ``tensor`` under ``name`` (reference: byteps.torch
+    declare): ``declare_tensor`` with its shape and dtype."""
+    declare_tensor(name, tensor.shape, tensor.dtype)
+
 
 def declare_tensor(name: str, shape, dtype) -> None:
     """Pre-register a tensor (reference: byteps_declare_tensor): fixes its

@@ -1,4 +1,4 @@
-"""byteps_tpu.monitor — live metrics, health, and straggler detection.
+"""byteps_tpu_torch.monitor — live metrics, health, and straggler detection.
 
 New scope (no reference equivalent): the reference's only runtime
 observability is the post-hoc Chrome-trace timeline (``BYTEPS_TRACE_*``,
@@ -14,10 +14,10 @@ compression, and to spot sick nodes before they stall the fleet:
 - ``http``     — per-role background HTTP endpoint (``/metrics``,
   ``/healthz``), started automatically by every node when
   ``BYTEPS_MONITOR_ON=1`` on ``BYTEPS_MONITOR_PORT + node_id``.
-- ``top``      — ``python -m byteps_tpu.monitor.top``: scrape every role
+- ``top``      — ``python -m byteps_tpu_torch.monitor.top``: scrape every role
   endpoint, compute per-worker push-latency skew, flag stragglers and
   dead/stale heartbeats.
-- ``insight``  — ``python -m byteps_tpu.monitor.insight``: live
+- ``insight``  — ``python -m byteps_tpu_torch.monitor.insight``: live
   per-round bottleneck attribution from the scheduler's fleet round
   table (``/rounds``): names the dominant stage, classifies the fleet
   state (wire-bound / sum-bound / straggler-skewed / retry-degraded /

@@ -36,7 +36,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 # rank's round ring; on the scheduler, also the fleet
                 # round table + per-rank EWMA baselines ingested from
                 # heartbeat summaries. `python -m
-                # byteps_tpu.monitor.insight --watch` polls this.
+                # byteps_tpu_torch.monitor.insight --watch` polls this.
                 # Elastic membership context rides along so
                 # the insight classifier can call an epoch-change round
                 # `resizing` instead of misreading it as skew.
@@ -74,7 +74,7 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 # Fleet event journal: this rank's local
                 # lifecycle-event ring; on the scheduler, also the
                 # clock-aligned fleet timeline and per-gauge history
-                # rings. `python -m byteps_tpu.monitor.incident` reads
+                # rings. `python -m byteps_tpu_torch.monitor.incident` reads
                 # this to render a post-mortem; monitor.top's ticker
                 # tails it.
                 from byteps_tpu_torch.core.ffi import events_summary
@@ -270,11 +270,11 @@ def maybe_start_monitor(node_id: int) -> Optional[MonitorServer]:
         if not cfg.monitor_on:
             return None
         srv = MonitorServer(cfg.monitor_port + node_id)
-        logging.getLogger("byteps_tpu.monitor").info(
+        logging.getLogger("byteps_tpu_torch.monitor").info(
             "monitor endpoint on :%d (/metrics, /healthz, /events)",
             srv.port)
         return srv
     except Exception as e:
-        logging.getLogger("byteps_tpu.monitor").warning(
+        logging.getLogger("byteps_tpu_torch.monitor").warning(
             "monitor endpoint disabled: %s", e)
         return None

@@ -174,8 +174,28 @@ class _TapState:
             specs.append((f"{self.prefix}_{i}.0", m,
                           ps._dtype_name(self.push_bufs[i]),
                           self.compression_config))
+        self.check_credit()
         for i, tid in enumerate(ps.declare_ordered(self.client, specs)):
             self.tids[i] = tid
+
+    def check_credit(self) -> None:
+        """Raise unless the core's push budget holds a whole step's pushes
+        when more than one worker pushes. The core holds a push's credit
+        until its pull returns, and a pull waits for every worker's push
+        of that key. Hooks queue the pushes as backward produces them,
+        and the core admits the queued push of highest priority, so two
+        workers can admit different keys; once each has spent its budget
+        on keys the other has not pushed, neither pull returns and the
+        fleet hangs."""
+        need = sum(b.nbytes for b in self.push_bufs.values())
+        have = ps.credit_bytes(bps._st().config)
+        if bps.size() > 1 and need > have:
+            raise ValueError(
+                f"hook-driven pushes of {need} bytes a step over "
+                f"{bps.size()} workers need BYTEPS_SCHEDULING_CREDIT >= "
+                f"{need} (now {have} bytes): with less, the workers can "
+                "spend their budgets on different keys and wait for each "
+                "other forever")
 
     def learn_names(self, model_or_params) -> None:
         """Name the parameters in errors as ``named_parameters`` does."""

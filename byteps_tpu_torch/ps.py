@@ -98,6 +98,16 @@ declare_steps: int = 0
 last_timings = {"d2h_s": 0.0, "core_s": 0.0, "h2d_s": 0.0}
 
 
+def credit_bytes(config) -> int:
+    """The core's push budget (``BYTEPS_SCHEDULING_CREDIT``, converted as
+    worker.cc converts it): partition bytes admitted to the wire whose
+    pull has not returned yet."""
+    credit = config.scheduling_credit
+    if 0 < credit < 1024:
+        return credit * config.partition_bytes
+    return credit if credit > 0 else 4 * config.partition_bytes
+
+
 def reset_declare_cache() -> None:
     _tid_cache.clear()
 

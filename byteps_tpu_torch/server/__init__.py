@@ -3,7 +3,7 @@
 Capability parity: reference byteps/server/__init__.py (SURVEY.md §2.3) —
 there, ``import byteps.server`` blocks in the server loop as an import
 side-effect. We keep the same capability behind an explicit entry point
-(``python -m byteps_tpu.server``; role from DMLC_ROLE) — import
+(``python -m byteps_tpu_torch.server``; role from DMLC_ROLE) — import
 side-effects that block are hostile to tooling, so main() is a function.
 """
 
@@ -21,7 +21,7 @@ def main() -> None:
         # server rank's id + key shard. Start() registers with the
         # recovery marker; the scheduler answers with a direct ADDRBOOK
         # and broadcasts the epoch RESUME, and the workers re-seed us.
-        print(f"byteps_tpu.server: starting as hot replacement for "
+        print(f"byteps_tpu_torch.server: starting as hot replacement for "
               f"server rank {recover_rank}", file=sys.stderr, flush=True)
     sched_recover = os.environ.get("DMLC_SCHED_RECOVER", "")
     if sched_recover and role == "scheduler":
@@ -32,7 +32,7 @@ def main() -> None:
         # CMD_REREGISTER quorum instead of running fleet formation; a
         # failed rebuild (conflict / window expiry) aborts nonzero so
         # the supervisor can attribute the death.
-        print("byteps_tpu.server: starting as scheduler crash-restart "
+        print("byteps_tpu_torch.server: starting as scheduler crash-restart "
               "(DMLC_SCHED_RECOVER) — waiting for the fleet's "
               "re-registration quorum", file=sys.stderr, flush=True)
     if (os.environ.get("BYTEPS_CKPT_RESTORE", "")
@@ -43,7 +43,7 @@ def main() -> None:
         # a restore epoch at the minimum version common to EVERY shard —
         # or refuses to start if any shard has nothing valid (a named
         # fail-stop, never a silent cold start).
-        print(f"byteps_tpu.server: {role} starting in checkpoint-restore "
+        print(f"byteps_tpu_torch.server: {role} starting in checkpoint-restore "
               f"mode (BYTEPS_CKPT_RESTORE, dir "
               f"{os.environ.get('BYTEPS_CKPT_DIR', '?')})",
               file=sys.stderr, flush=True)
@@ -54,7 +54,7 @@ def main() -> None:
         # server rank BYTEPS_REPLICA_OF via the snapshot delta protocol,
         # and serves CMD_SNAP_PULL reads. Its death costs readers one
         # failover and the training fleet nothing.
-        print(f"byteps_tpu.server: starting as read replica of server "
+        print(f"byteps_tpu_torch.server: starting as read replica of server "
               f"rank {replica_of or 0} (snapshot serving)",
               file=sys.stderr, flush=True)
     from byteps_tpu_torch.core import Replica, Scheduler, Server
@@ -68,10 +68,10 @@ def main() -> None:
         raise SystemExit(
             f"DMLC_ROLE must be scheduler|server|replica, got {role!r}")
     # BYTEPS_MONITOR_ON=1 gave this node a /metrics + /healthz endpoint
-    # (byteps_tpu.monitor, started inside Node.start); announce it so
+    # (byteps_tpu_torch.monitor, started inside Node.start); announce it so
     # operators and monitor.top know where to scrape this role.
     if node._monitor is not None:
-        print(f"byteps_tpu.server: {role} monitor endpoint on "
+        print(f"byteps_tpu_torch.server: {role} monitor endpoint on "
               f":{node._monitor.port} (/metrics, /healthz)",
               file=sys.stderr, flush=True)
     # Start() returns once the topology is up; shutdown() blocks until the
@@ -92,6 +92,6 @@ def main() -> None:
     # broadcasting a failure IS its job done correctly (and the restart
     # loop keys off the workers' exit codes).
     if role == "server" and node.failure_shutdown():
-        print("byteps_tpu.server: failure shutdown (a node died); "
+        print("byteps_tpu_torch.server: failure shutdown (a node died); "
               "exiting nonzero", file=sys.stderr, flush=True)
         raise SystemExit(2)

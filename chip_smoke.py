@@ -60,7 +60,18 @@ Phases, each of which raises on failure:
    evaluation forward, a profiled step; the same with remat=True, 2
    steps, losses equal to the bit and the forward launched 44 times a
    step; the plain PS step, 3 steps on the f32 wire (4.1 GB each way),
-   losses equal to rtol 1e-5, with its D2H / core / H2D split.
+   losses equal to rtol 1e-5, with its D2H / core / H2D split;
+8. the user's entry point: the port's launcher (python -m
+   byteps_tpu_torch.launcher --local 2 --num-servers 1 --restarts 1 --
+   python chip_smoke.py --launched-worker DIR ...) runs two fleets of
+   two GPT-2 small workers on the card (rows [4r, 4r + 4) of phase 3's
+   tokens each, DistributedOptimizer(AdamW) on the f32 wire, a
+   checkpoint by rank 0 after every step, the callbacks, the in-place
+   API, and on rank 0 a Timeline of step 3 merged with the core's
+   spans): one uninterrupted, one whose rank 0 ends its process after
+   checkpointing step 2, restarted by the launcher and resumed from the
+   checkpoint. Both must end with the same parameters and AdamW moments
+   to the bit (see ``launch_phase``).
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -1508,6 +1519,370 @@ def llama_phase():
     return {"llama1b": out}
 
 
+# --- phase 8: the launcher, checkpoint/resume, callbacks, timeline -----------
+
+LAUNCH_WORKERS, PREEMPT_AFTER, TRACED_STEP = 2, 2, 3
+# a fleet that has not ended by then has hung; its workers print every
+# thread's stack a minute before
+FLEET_TIMEOUT_S = 300
+# the in-place check's tensor on worker r holds r + 1; the mean of 1 and 2
+INPLACE_MEAN = 1.5
+
+
+def _sha256(tensors):
+    """sha256 over the bytes of ``tensors``, in order."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _trace_check(path):
+    """What the merged timeline of the traced step holds: the core's push
+    and pull spans (under the core's process row) and the three training
+    kernels, and whether the spans sit, after the clock shift, inside the
+    profiler's time range and after the step's first forward kernel (a
+    push waits for its gradient, which waits for the forward)."""
+    from byteps_tpu_torch.utils.timeline import _DCN_PID
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e]
+    core = [e for e in events if e.get("pid") == _DCN_PID
+            and e.get("name") in ("push", "pull")]
+    prof = [e for e in events if e.get("pid") != _DCN_PID]
+    lo = min(float(e["ts"]) for e in prof)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in prof)
+    kernels = {}
+    for name in ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
+                 "fa_bwd_dkv_wgmma_kernel"):
+        kernels[name] = sorted(float(e["ts"]) for e in events
+                               if e.get("cat") == "kernel"
+                               and name in e.get("name", ""))
+    pushes = sorted(float(e["ts"]) for e in core if e["name"] == "push")
+    pulls = [float(e["ts"]) + float(e.get("dur", 0)) for e in core
+             if e["name"] == "pull"]
+    return {
+        "push_spans": len(pushes), "pull_spans": len(pulls),
+        "kernel_events": {k: len(v) for k, v in kernels.items()},
+        "spans_inside_profile": all(
+            lo <= float(e["ts"]) and float(e["ts"]) + float(e.get("dur", 0))
+            <= hi for e in core),
+        "first_push_after_first_forward_us": (
+            pushes[0] - kernels["fa_fwd_wgmma_kernel"][0]
+            if pushes and kernels["fa_fwd_wgmma_kernel"] else None),
+        "last_pull_after_last_dkv_us": (
+            max(pulls) - kernels["fa_bwd_dkv_wgmma_kernel"][-1]
+            if pulls and kernels["fa_bwd_dkv_wgmma_kernel"] else None),
+    }
+
+
+def launched_worker(out_dir, preempt_after=0, trace=False):
+    """One worker of phase 8, started by the port's launcher (``python
+    chip_smoke.py --launched-worker DIR``): GPT2Small(flash) with the
+    seed-0 weights on rows [4r, 4r + 4) of phase 3's tokens,
+    DistributedOptimizer(AdamW(1e-4, weight decay 1e-4)) on the f32 wire,
+    STEPS steps in all, each followed by rank 0's checkpoint of the
+    model, the optimizer and the step (keep 2). It resumes from the
+    newest checkpoint in DIR/ckpt when there is one. With
+    ``preempt_after`` k, rank 0 ends its process (``os._exit``) right
+    after checkpointing step k; with ``trace``, rank 0 traces step
+    TRACED_STEP through ``Timeline``. It writes what it saw to
+    DIR/rank<r>_from<start>.json and never prints the smoke run's result
+    lines."""
+    import faulthandler
+
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.callbacks import (BroadcastGlobalVariablesCallback,
+                                            CallbackList,
+                                            MetricAverageCallback,
+                                            MonitorCallback)
+    from byteps_tpu_torch.utils import (Timeline, restore_checkpoint,
+                                        save_checkpoint)
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    faulthandler.dump_traceback_later(FLEET_TIMEOUT_S - 60)
+    lm = GPT2
+    t_start = time.monotonic()
+    me = f"launched worker {os.environ.get('DMLC_WORKER_ID')}"
+
+    def progress(what):
+        log(f"{me}: {what} at {time.monotonic() - t_start:.1f} s")
+    if trace and os.environ.get("DMLC_WORKER_ID") == "0":
+        os.environ.update({
+            "BYTEPS_TRACE_ON": "1",
+            "BYTEPS_TRACE_DIR": os.path.join(out_dir, "trace"),
+            "BYTEPS_TRACE_START_STEP": str(TRACED_STEP - 1),
+            "BYTEPS_TRACE_END_STEP": str(TRACED_STEP)})
+    bps.init()
+    progress("initialised")
+    # before anything is pushed: the core's ring then records only the
+    # traced step
+    timeline = Timeline()
+    rank, size = bps.rank(), bps.size()
+    if size != LAUNCH_WORKERS:
+        raise AssertionError(f"fleet of {size} workers")
+    ckpt = os.path.join(out_dir, "ckpt")
+    model = lm.make()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    t0 = time.perf_counter()
+    state, start = restore_checkpoint(
+        ckpt, {"model": model.state_dict(), "optimizer": opt.state_dict(),
+               "step": 0})
+    if start is not None:
+        model.load_state_dict(state["model"])
+        opt.load_state_dict(state["optimizer"])
+        if state["step"] != start:
+            raise AssertionError(f"checkpoint step {state['step']} in "
+                                 f"step_{start}")
+    del state
+    restore_s = time.perf_counter() - t0
+    progress(f"restored step {start}")
+    start = start or 0
+    dopt = bps.DistributedOptimizer(opt)
+    loop = {"model": model, "optimizer": dopt, "metrics": {}}
+    callbacks = CallbackList([BroadcastGlobalVariablesCallback(0),
+                              MetricAverageCallback(), MonitorCallback()])
+    callbacks.on_train_begin(loop)
+    progress("broadcast")
+
+    # the in-place API on the card: declared, then blocking and async
+    x = torch.full((1024,), float(rank + 1), device=bps.device())
+    y = x.clone()
+    bps.declare("inplace", x)
+    bps.declare("inplace_async", y)
+    if bps.push_pull_inplace_(x, name="inplace") is not x:
+        raise AssertionError("push_pull_inplace_ returned another tensor")
+    if bps.synchronize(bps.push_pull_async_inplace_(
+            y, name="inplace_async")) is not y:
+        raise AssertionError("push_pull_async_inplace_ wrote elsewhere")
+    inplace = [float(x.min()), float(x.max()), float(y.min()),
+               float(y.max())]
+    progress(f"in-place {inplace}")
+
+    rows = lm.shape[0] // size
+    batch = lm.batch(bps.device())[rows * rank:rows * (rank + 1)]
+    rec = {"rank": rank, "start": start, "restore_s": restore_s,
+           "grad_bytes": 4 * sum(p.numel() for p in model.parameters()),
+           "inplace": inplace, "steps": {}}
+    path = os.path.join(out_dir, f"rank{rank}_from{start}.json")
+
+    def write():
+        with open(path, "w") as f:
+            json.dump(rec, f)
+    write()
+    for step in range(start + 1, STEPS + 1):
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        dopt.zero_grad()
+        loss = lm.loss(model, batch)
+        loss.backward()
+        dopt.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(fa.LAUNCHES)
+        _check_launches(f"launched worker {rank} step {step}", launches,
+                        lm.layers, steps=1)
+        loop["metrics"] = {"loss": loss.item()}
+        callbacks.on_batch_end(step, loop)
+        timeline.step()
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, {"model": model.state_dict(),
+                               "optimizer": opt.state_dict(), "step": step},
+                        step, keep=2)
+        rec["steps"][step] = {
+            "loss": loop["metrics"]["loss"], "ms": step_ms,
+            "launches": launches, "save_s": time.perf_counter() - t0,
+            "wire_sent_bytes": loop["monitor"]["wire_sent_bytes"],
+            "done": time.monotonic()}
+        progress(f"step {step} ({step_ms:.0f} ms, loss "
+                 f"{loop['metrics']['loss']:.6f}) saved")
+        if rank == 0 and step == preempt_after:
+            rec["exit"] = time.monotonic()
+            write()
+            os._exit(3)
+        write()
+    callbacks.on_epoch_end(0, loop)
+    rec["loss_mean"] = loop["metrics"]["loss"]
+    moments = [v for _, s in sorted(opt.state_dict()["state"].items())
+               for k, v in sorted(s.items()) if k != "step"]
+    rec["sha256"] = {"params": _sha256(model.state_dict().values()),
+                     "adamw_moments": _sha256(moments)}
+    if trace and rank == 0:
+        rec["trace"] = _trace_check(os.path.join(
+            out_dir, "trace", f"combined_rank{rank}.json"))
+    bps.shutdown()
+    write()
+    progress("done")
+    return 0
+
+
+def _worker_cmd(out_dir, extra):
+    return [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+            "--launched-worker", out_dir, *extra]
+
+
+def _launch(label, out_dir, extra, timeout=FLEET_TIMEOUT_S):
+    """``python -m byteps_tpu_torch.launcher --local 2 --num-servers 1
+    --restarts 1 -- <worker>``, in a session of its own so that every
+    process of the fleet goes down with it; returns its exit code, its
+    output and its seconds."""
+    import signal
+    env = dict(os.environ)
+    env.update({"PYTHONPATH": HERE + os.pathsep + env.get("PYTHONPATH", ""),
+                "PS_HEARTBEAT_INTERVAL": "1", "PS_HEARTBEAT_TIMEOUT": "4",
+                "BYTEPS_PS_MODE": "ps",
+                # a step's pushes (498 MB) within the push budget: the
+                # hook-driven pushes of two workers need it
+                # (overlap._TapState.check_credit)
+                "BYTEPS_SCHEDULING_CREDIT": str(1 << 30)})
+    log_path = os.path.join(out_dir, "launcher.log")
+    cmd = [sys.executable, "-m", "byteps_tpu_torch.launcher", "--local",
+           str(LAUNCH_WORKERS), "--num-servers", "1", "--restarts", "1",
+           "--", *_worker_cmd(out_dir, extra)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        p = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=out,
+                             stderr=subprocess.STDOUT,
+                             start_new_session=True)
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    seconds = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        log(f"--- fleet {label} log ---\n{text[-12000:]}")
+        raise AssertionError(f"fleet {label}: launcher exit {rc}")
+    return text, seconds
+
+
+def launch_phase(coll_losses):
+    """Phase 8. Two fleets of the port's launcher (scheduler, one server,
+    LAUNCH_WORKERS GPT-2 small workers on the card): (U) runs STEPS steps
+    uninterrupted and traces step TRACED_STEP on rank 0; (P) loses rank 0
+    after checkpointing step PREEMPT_AFTER, the launcher restarts the
+    fleet once, and the second life resumes from that checkpoint. Gates:
+    every child of both fleets exits 0 in the end; (P) restarted once and
+    (U) never; (U) and (P) end with the same sha256 of every parameter
+    and AdamW moment on each worker, and the same losses for the steps
+    after the preemption; the three training kernels launch 12 times a
+    step on each worker; the in-place results are INPLACE_MEAN; both
+    workers hold the same metric average; each step sends at least the
+    gradients' bytes; the merged timeline holds the core's push and pull
+    spans inside the profiler's range and after the step's first forward
+    kernel, and the three kernels; the mean of the workers' step-1 losses
+    is within 1e-3 relative of phase 3's step-1 loss."""
+    import shutil
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        runs = {}
+        for label, extra in (("U", ["--trace"]),
+                             ("P", ["--preempt-after", str(PREEMPT_AFTER)])):
+            d = os.path.join(tmp, label)
+            os.makedirs(d)
+            text, seconds = _launch(label, d, extra)
+            restarted = "restart 1/1" in text
+            if restarted != (label == "P"):
+                raise AssertionError(f"fleet {label}: restarted "
+                                     f"{restarted}:\n{text[-4000:]}")
+            recs = {}
+            for name in sorted(os.listdir(d)):
+                if name.endswith(".json"):
+                    with open(os.path.join(d, name)) as f:
+                        recs[name[:-5]] = json.load(f)
+            runs[label] = {"records": recs, "seconds": seconds}
+            log(f"fleet {label}: {seconds:.1f} s, records {sorted(recs)}")
+        return _launch_summary(runs, coll_losses)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _launch_summary(runs, coll_losses):
+    """The gates of ``launch_phase`` over the workers' records, and what
+    the phase reports."""
+    u, p = runs["U"]["records"], runs["P"]["records"]
+    want = ({f"rank{r}_from0" for r in range(LAUNCH_WORKERS)},
+            {f"rank{r}_from{s}" for r in range(LAUNCH_WORKERS)
+             for s in (0, PREEMPT_AFTER)})
+    if (set(u), set(p)) != want:
+        raise AssertionError(f"records U {sorted(u)} P {sorted(p)}")
+    out = {"fleet_seconds": {k: r["seconds"] for k, r in runs.items()}}
+    for rank in range(LAUNCH_WORKERS):
+        whole = u[f"rank{rank}_from0"]
+        first, second = p[f"rank{rank}_from0"], p[
+            f"rank{rank}_from{PREEMPT_AFTER}"]
+        if whole["sha256"] != second["sha256"]:
+            raise AssertionError(f"rank {rank}: U {whole['sha256']} != P "
+                                 f"{second['sha256']}")
+        for s in range(PREEMPT_AFTER + 1, STEPS + 1):
+            if whole["steps"][str(s)]["loss"] != second["steps"][str(s)][
+                    "loss"]:
+                raise AssertionError(f"rank {rank} step {s}: losses U "
+                                     f"{whole['steps']} P {second['steps']}")
+        for rec in (whole, first, second):
+            if rec["inplace"] != [INPLACE_MEAN] * 4:
+                raise AssertionError(f"rank {rank}: in-place {rec['inplace']}")
+            for s, st in rec["steps"].items():
+                if st["wire_sent_bytes"] < rec["grad_bytes"]:
+                    raise AssertionError(f"rank {rank} step {s} sent "
+                                         f"{st['wire_sent_bytes']} bytes")
+    for recs in (u, p):
+        ends = [r for k, r in recs.items() if "loss_mean" in r]
+        if len({r["loss_mean"] for r in ends}) != 1 or len(
+                {json.dumps(r["sha256"]) for r in ends}) != 1:
+            raise AssertionError(f"workers disagree: {ends}")
+    step1 = sum(u[f"rank{r}_from0"]["steps"]["1"]["loss"]
+                for r in range(LAUNCH_WORKERS)) / LAUNCH_WORKERS
+    if not abs(step1 - coll_losses[0]) <= 1e-3 * abs(coll_losses[0]):
+        raise AssertionError(f"step-1 loss mean {step1} vs phase 3 "
+                             f"{coll_losses[0]}")
+    trace = u["rank0_from0"].get("trace")
+    if not (trace and trace["push_spans"] and trace["pull_spans"]
+            and trace["spans_inside_profile"]
+            and trace["first_push_after_first_forward_us"] > 0
+            and trace["last_pull_after_last_dkv_us"] > 0
+            and all(trace["kernel_events"].values())):
+        raise AssertionError(f"merged timeline: {trace}")
+    w0 = p["rank0_from0"]
+    out.update({
+        "step1_loss_mean": step1, "phase3_losses": coll_losses,
+        "losses": {label: {k: {s: st["loss"] for s, st in r["steps"].items()}
+                           for k, r in recs.items()}
+                   for label, recs in (("U", u), ("P", p))},
+        "step_ms": {label: {k: [st["ms"] for st in r["steps"].values()]
+                            for k, r in recs.items()}
+                    for label, recs in (("U", u), ("P", p))},
+        "save_s": [st["save_s"] for st in u["rank0_from0"]["steps"].values()],
+        "restore_s": {k: r["restore_s"] for k, r in p.items()
+                      if r["start"]},
+        "exit_to_first_step_s": p[f"rank0_from{PREEMPT_AFTER}"]["steps"][
+            str(PREEMPT_AFTER + 1)]["done"] - w0["exit"],
+        "wire_sent_bytes": [st["wire_sent_bytes"]
+                            for st in u["rank0_from0"]["steps"].values()],
+        "sha256": u["rank0_from0"]["sha256"],
+        "trace": trace,
+        "launches": {k: sum(st["launches"][k] for r in u.values()
+                            for st in r["steps"].values())
+                     for k in ("fwd_lse", "fwd", "bwd_dq", "bwd_dkv")},
+    })
+    log("launched fleets:", json.dumps({k: v for k, v in out.items()
+                                        if k not in ("losses", "step_ms")}))
+    return out
+
+
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
@@ -1551,6 +1926,7 @@ def main() -> int:
     images = resnet_phase()
     encoder = bert_phase()
     llama = llama_phase()
+    launched = launch_phase(coll_losses)
 
     def staging_ms(run):
         return {"step": _median(run["step_ms"]),
@@ -1582,6 +1958,7 @@ def main() -> int:
         **images,
         **encoder,
         **llama,
+        "launched_fleets": launched,
         "sdpa_fwd_bwd_ms": {case: timing[case]["sdpa_fwd_bwd_ms"]
                             for case in TIMED},
         "bwd_pair": {case: timing[case]["bwd_pair"] for case in TIMED},
@@ -1603,7 +1980,8 @@ def main() -> int:
                "bert_large": encoder["bert_large"]["collective"]["launches"],
                "gpt2_medium": encoder["gpt2_medium"]["launches"],
                "llama1b": llama["llama1b"]["collective"]["launches"],
-               "llama1b_remat": llama["llama1b"]["remat"]["launches"]}
+               "llama1b_remat": llama["llama1b"]["remat"]["launches"],
+               "launched_fleet_u": launched["launches"]}
     kernels = []
     for name, (fn, replaces) in REPLACES.items():
         kernels.append({
@@ -1623,5 +2001,19 @@ def main() -> int:
     return 0
 
 
+def _worker_main(argv) -> int:
+    import argparse
+    p = argparse.ArgumentParser(prog="chip_smoke.py --launched-worker")
+    p.add_argument("--launched-worker", metavar="DIR", required=True)
+    p.add_argument("--preempt-after", type=int, default=0)
+    p.add_argument("--trace", action="store_true")
+    args = p.parse_args(argv)
+    sys.path.insert(0, HERE)
+    return launched_worker(args.launched_worker, args.preempt_after,
+                           args.trace)
+
+
 if __name__ == "__main__":
+    if "--launched-worker" in sys.argv[1:]:
+        sys.exit(_worker_main(sys.argv[1:]))
     sys.exit(main())

@@ -32,6 +32,12 @@ class LoopbackClient:
         self.tid_of = {}  # handle -> tensor id
         self.values = {}  # tensor id -> the async servers' copy
 
+    def worker_rank(self):
+        return 0
+
+    def num_workers(self):
+        return 1
+
     def declare(self, name, nelem, dtype, compression=None):
         with self.lock:
             self.declares.append((name, int(nelem), str(dtype), compression))

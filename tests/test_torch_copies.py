@@ -2,13 +2,16 @@
 
 ``byteps_tpu_torch`` imports nothing of ``byteps_tpu``, so it carries
 copies of the modules it needs. Their code stays the originals' code:
-only comments, docstrings and the package name in imports may differ.
+only comments, docstrings and the package name (in imports, and as a
+whole word in string constants such as ``-m byteps_tpu.server``) may
+differ.
 ``core/build.py`` (output path, build stamp) and ``core/ffi.py`` (bf16
 staging) are the port's own and are not listed here.
 """
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -16,13 +19,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("core", "csrc")
 PY_COPIES = ["config.py", "partition.py", "core/__init__.py",
              "monitor/__init__.py", "monitor/metrics.py", "monitor/http.py",
-             "server/__init__.py", "server/__main__.py"]
+             "monitor/timeline.py", "monitor/insight.py",
+             "monitor/incident.py", "monitor/top.py", "client.py",
+             "server/__init__.py", "server/__main__.py",
+             "launcher/__init__.py", "launcher/__main__.py",
+             "launcher/launch.py"]
 C_COPIES = sorted(os.listdir(os.path.join(ROOT, "byteps_tpu", CSRC)))
 
 
 def _py_code(path, rename):
     """ast.dump of a module without docstrings, with ``byteps_tpu``
-    imports renamed to the port when ``rename``."""
+    renamed to the port in imports and, as a whole word, in string
+    constants when ``rename``."""
     with open(path) as f:
         tree = ast.parse(f.read())
 
@@ -44,6 +52,10 @@ def _py_code(path, rename):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 alias.name = port(alias.name)
+        if (rename and isinstance(node, ast.Constant)
+                and isinstance(node.value, str)):
+            node.value = re.sub(r"\bbyteps_tpu\b", "byteps_tpu_torch",
+                                node.value)
     return ast.dump(tree)
 
 

@@ -39,5 +39,14 @@ def test_port_imports_no_jax_and_nothing_of_byteps_tpu():
                 "byteps_tpu_torch.models.resnet", "byteps_tpu_torch.models.vgg",
                 "byteps_tpu_torch.models.mlp", "byteps_tpu_torch.stateful",
                 "byteps_tpu_torch.parallel.hierarchical",
-                "byteps_tpu_torch.monitor.http"):
+                "byteps_tpu_torch.monitor.http",
+                "byteps_tpu_torch.monitor.timeline",
+                "byteps_tpu_torch.monitor.insight",
+                "byteps_tpu_torch.monitor.incident",
+                "byteps_tpu_torch.monitor.top", "byteps_tpu_torch.client",
+                "byteps_tpu_torch.launcher.launch",
+                "byteps_tpu_torch.launcher.__main__",
+                "byteps_tpu_torch.utils.checkpoint",
+                "byteps_tpu_torch.utils.timeline",
+                "byteps_tpu_torch.callbacks"):
         assert mod in got["imported"], mod

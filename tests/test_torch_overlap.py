@@ -733,3 +733,31 @@ def _worker_main(mode: str) -> int:
 
 if __name__ == "__main__":
     sys.exit(_worker_main(os.environ["BPS_TEST_MODE"]))
+
+
+class _TwoWorkerLoopback(LoopbackClient):
+    def num_workers(self):
+        return 2
+
+
+@pytest.mark.parametrize("credit,fits", [
+    (0, True),  # the default, 4 partitions: 16.4 MB
+    (4, True),  # a legacy partition count
+    (4096, False),  # bytes
+    (1 << 18, True)])  # exactly a step
+def test_hook_pushes_need_a_step_within_the_credit(monkeypatch, credit,
+                                                    fits):
+    """With more than one worker, hook-driven pushes need the core's push
+    budget to hold a step's 256 KiB: the core keeps a push's credit until
+    its pull returns, so two workers that admit different keys first can
+    each wait for the other forever (a 2-worker GPT-2-width fleet hung in
+    4 of 6 runs at the default budget)."""
+    monkeypatch.setenv("BYTEPS_SCHEDULING_CREDIT", str(credit))
+    init_loopback(monkeypatch, _TwoWorkerLoopback())
+    opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(64, 1024))],
+                          lr=0.1)
+    if fits:
+        bps.DistributedOptimizer(opt)._taps.close()
+    else:
+        with pytest.raises(ValueError, match="BYTEPS_SCHEDULING_CREDIT"):
+            bps.DistributedOptimizer(opt)
