@@ -10,7 +10,8 @@ plugin: ``push_pull_inplace_``, ``push_pull_async_inplace_`` and
 
 One process drives one GPU. The local process group (``torch.distributed``,
 NCCL on the card, gloo on the CPU) plays the part of the JAX mesh's ``ici``
-axis; in PS mode the cross-host level goes through the C++ KV client to the
+axis; in collective mode a mesh's ``dcn`` group may play its ``dcn`` axis,
+and in PS mode the cross-host level goes through the C++ KV client to the
 CPU parameter servers (``byteps_tpu_torch.ps``). Tensors are per-process
 values (the Horovod contract), not stacked replicas. Entry points run on
 the card unless the caller passes ``device="cpu"``.
@@ -30,9 +31,10 @@ import torch
 import torch.distributed as dist
 
 from byteps_tpu_torch._device import resolve_device
-from byteps_tpu_torch.compression import Compression, Compressor
+from byteps_tpu_torch.compression import QUANTIZED, Compression, Compressor
 from byteps_tpu_torch.config import Config, get_config
 from byteps_tpu_torch.parallel import hierarchical as _h
+from byteps_tpu_torch.parallel.mesh import Mesh, set_global_mesh
 from byteps_tpu_torch.partition import TensorRegistry
 
 __all__ = [
@@ -51,6 +53,7 @@ class _State:
     device: torch.device
     group: Optional[dist.ProcessGroup]  # the local level; None = 1 process
     ps_client: Any = None  # C++ KV client (PS mode)
+    dcn_group: Optional[dist.ProcessGroup] = None  # collective mode's dcn
 
 
 _state: Optional[_State] = None
@@ -58,12 +61,20 @@ _lock = threading.Lock()
 
 
 def init(config: Optional[Config] = None, *, device=None,
-         group: Optional[dist.ProcessGroup] = None) -> None:
-    """Initialise byteps_tpu_torch: the tensor registry, the local process
-    group (``group``, else the default group when ``torch.distributed`` is
-    initialised, else this process alone), and in PS mode the C++ KV
-    client's connection to the scheduler. ``device`` is where this
-    process computes: the current CUDA device unless given."""
+         group: Optional[dist.ProcessGroup] = None,
+         mesh: Optional[Mesh] = None) -> None:
+    """Initialise byteps_tpu_torch: the tensor registry, the process
+    groups, and in PS mode the C++ KV client's connection to the
+    scheduler. ``device`` is where this process computes: the current
+    CUDA device unless given.
+
+    The local level is ``group``, else the default group when
+    ``torch.distributed`` is initialised, else this process alone. A
+    ``mesh`` (``parallel.mesh.build_mesh``) replaces ``group``: its
+    ``ici`` axis is the local level and, in collective mode, its ``dcn``
+    axis the cross-host level, as the JAX mesh's axes are; it becomes the
+    global mesh. In PS mode the servers are the cross-host level, so a
+    mesh whose ``dcn`` axis has more than one process is refused there."""
     global _state
     from byteps_tpu_torch import ps as _ps
     # Settle a stale async op against the OLD client before re-init.
@@ -71,12 +82,21 @@ def init(config: Optional[Config] = None, *, device=None,
     with _lock:
         cfg = config or get_config(reload=True)
         dev = resolve_device(device)
-        if group is None and dist.is_available() and dist.is_initialized():
+        dcn_group = None
+        if mesh is not None:
+            group, dcn_group = (
+                mesh.group(a) if a in mesh.axis_names else None
+                for a in (cfg.ici_axis, cfg.dcn_axis))
+        elif group is None and dist.is_available() and dist.is_initialized():
             group = dist.group.WORLD
         registry = TensorRegistry(cfg.partition_bytes,
                                   max(1, cfg.num_server))
         ps_client = None
         if cfg.use_ps:
+            if _h.group_size(dcn_group) > 1:
+                raise ValueError(
+                    "PS mode: the servers are the cross-host level; a "
+                    "mesh's dcn axis is collective mode's")
             if group is not None and dist.get_world_size(group) > 1:
                 raise NotImplementedError(
                     f"PS mode with {dist.get_world_size(group)} processes "
@@ -87,7 +107,8 @@ def init(config: Optional[Config] = None, *, device=None,
             from byteps_tpu_torch.core import ffi as _ffi
             ps_client = _ffi.Worker.start(cfg)
         _ps.reset_declare_cache()
-        _state = _State(cfg, registry, dev, group, ps_client)
+        set_global_mesh(mesh)
+        _state = _State(cfg, registry, dev, group, ps_client, dcn_group)
 
 
 def shutdown() -> None:
@@ -101,6 +122,7 @@ def shutdown() -> None:
         if _state is not None and _state.ps_client is not None:
             _state.ps_client.shutdown()
         _ps.reset_declare_cache()
+        set_global_mesh(None)
         _state = None
 
 
@@ -148,6 +170,21 @@ def local_size() -> int:
     return _h.group_size(_st().group)
 
 
+def _group_reduce(tensors, average: bool, compression: Compressor):
+    """The collective levels' reduction of a list of tensors, compressed:
+    int8 runs the quantized transport (``tree_quantized_all_reduce``;
+    ``int8_dcn`` quantizes the dcn level too), the others their cast and
+    then the hierarchical all-reduce. Returns the wire values, which
+    ``compression.decompress`` takes back."""
+    st = _st()
+    kw = dict(ici_group=st.group, dcn_group=st.dcn_group, average=average)
+    if compression.name in QUANTIZED:
+        return _h.tree_quantized_all_reduce(
+            tensors, quantize_dcn=compression.name == "int8_quant_dcn", **kw)
+    return _h.tree_all_reduce([compression.compress(t) for t in tensors],
+                              **kw)
+
+
 # --- push_pull -------------------------------------------------------------
 
 def push_pull(tensors, average: bool = True, name: Optional[str] = None,
@@ -155,10 +192,11 @@ def push_pull(tensors, average: bool = True, name: Optional[str] = None,
     """Sum (or average) a tensor, list or dict of tensors across all
     workers; returns the same structure.
 
-    The local group reduces first (the hierarchical all-reduce), with the
-    ``compression`` cast applied before and undone after. In PS mode the
-    result then crosses the host boundary through the C++ KV client, so
-    the reduction is global across worker processes. ``name`` keys the PS
+    The process groups reduce first (the hierarchical all-reduce), with
+    the ``compression`` cast applied before and undone after; the int8
+    compressors replace that transport with the quantized one. In PS mode
+    the result then crosses the host boundary through the C++ KV client,
+    so the reduction is global across worker processes. ``name`` keys the PS
     registry; unnamed calls share a shape-keyed name and must be issued in
     the same order on every worker.
     """
@@ -167,8 +205,7 @@ def push_pull(tensors, average: bool = True, name: Optional[str] = None,
     if not leaves:
         return tensors
     dtypes = [t.dtype for t in leaves]
-    wire = _h.tree_all_reduce([compression.compress(t) for t in leaves],
-                              ici_group=st.group, average=average)
+    wire = _group_reduce(leaves, average, compression)
     if st.ps_client is not None:
         from byteps_tpu_torch import ps as _ps
         wire = _ps.ps_push_pull(wire, average=average,
@@ -272,7 +309,7 @@ def broadcast_parameters(params, root_rank: int = 0,
     if not leaves:
         return params
     synced = _h.tree_broadcast(list(leaves), root=root_rank,
-                               ici_group=st.group)
+                               ici_group=st.group, dcn_group=st.dcn_group)
     if st.ps_client is not None:
         from byteps_tpu_torch import ps as _ps
         synced = _ps.ps_broadcast(synced, root_rank=root_rank,

@@ -2,7 +2,7 @@
 applies before the reduction and undoes after it.
 
 Counterpart of ``byteps_tpu/jax/compression.py`` (``none``, ``fp16``,
-``bf16``). The int8 quantized transport is not ported yet.
+``bf16``, ``int8``, ``int8_dcn``).
 """
 
 from __future__ import annotations
@@ -38,3 +38,14 @@ class Compression:
     # bfloat16 keeps f32's exponent range, so gradient casts need no loss
     # scaling.
     bf16 = Compressor("bf16", lambda x: x.to(torch.bfloat16), _restore)
+    # int8: blockwise-quantized collective transport (the whole reduce
+    # path changes, not just a cast): collective-mode push_pull and
+    # make_train_step dispatch to parallel.hierarchical.
+    # tree_quantized_all_reduce when they see it. Plain int8 quantizes the
+    # fast (ici) level only; int8_dcn the slow (dcn) level too.
+    int8 = Compressor("int8_quant", _identity, _restore)
+    int8_dcn = Compressor("int8_quant_dcn", _identity, _restore)
+
+
+# the compressors that replace the transport rather than cast around it
+QUANTIZED = (Compression.int8.name, Compression.int8_dcn.name)

@@ -5,8 +5,8 @@ the LLaMA family (``llama``: RMSNorm, RoPE, GQA, SwiGLU, remat),
 ResNet-18/34/50/101 with BatchNorm (``resnet``), VGG-16/19 (``vgg``) and
 the MLP (``mlp``), each with a ``from_flax`` in its module (``from_flax``
 here is the transformer family's, which also names Llama's parameters).
-Sequence parallelism (``sp_lm_loss``, the Ulysses branch of Llama's
-attention) is not ported yet."""
+The transformer family and Llama take an ``sp_group`` for sequence
+parallelism, with ``sp_lm_loss`` as its loss."""
 
 from byteps_tpu_torch.models.llama import (  # noqa: F401
     Llama1B,
@@ -32,5 +32,6 @@ from byteps_tpu_torch.models.transformer import (  # noqa: F401
     from_flax,
     lm_loss,
     masked_lm_loss,
+    sp_lm_loss,
 )
 from byteps_tpu_torch.models.vgg import VGG, VGG16, VGG19  # noqa: F401

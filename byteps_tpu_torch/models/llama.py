@@ -12,8 +12,16 @@ GQA repeats each K/V head ``num_heads // num_kv_heads`` times in a row
 flash kernels see ordinary multi-head attention. ``remat=True`` runs each
 block under ``torch.utils.checkpoint`` (non-reentrant): its activations
 are recomputed in the backward, which launches each block's forward
-kernels twice a step. Sequence parallelism (the reference's Ulysses
-branch) is not ported: ``sp_axis`` raises.
+kernels twice a step.
+
+Sequence parallelism: with an ``sp_group`` (the JAX modules' ``sp_axis``)
+each process holds one block of the sequence, RoPE takes the block's
+global positions, and ``ring``, ``ulysses`` and ``flash`` attend over the
+whole sequence (``full`` raises). Under ``ulysses`` and ``flash`` with GQA,
+where the KV heads divide by the group's size, the all-to-all reshards
+the unrepeated K/V heads (1/groups of the bytes) and each process repeats
+its KV heads after the exchange, inside the inner attention; ``flash``
+runs the port's kernels there, ``ulysses`` ``full_attention``.
 
 ``from_flax`` is the transformer family's: the flax names
 ``embed/embedding``, ``layer_i/{attn_norm,mlp_norm}/scale``,
@@ -35,7 +43,10 @@ from torch.utils.checkpoint import checkpoint
 
 from byteps_tpu_torch._device import resolve_device
 from byteps_tpu_torch.models.transformer import (  # noqa: F401 (from_flax)
-    Dense, Embed, _attention_fn, from_flax)
+    Dense, Embed, _attention_fn, _default_positions, from_flax)
+from byteps_tpu_torch.parallel._collectives import group_size
+from byteps_tpu_torch.parallel.ring_attention import full_attention
+from byteps_tpu_torch.parallel.ulysses import ulysses_attention
 
 _RMS_EPS = 1e-6  # the flax module's (torch.nn.RMSNorm's default differs)
 
@@ -83,8 +94,8 @@ class LlamaAttention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
                  dtype: torch.dtype, attn_impl: str,
-                 generator: torch.Generator,
-                 sp_axis: Optional[str] = None, rope_theta: float = 10000.0):
+                 generator: torch.Generator, sp_group=None,
+                 rope_theta: float = 10000.0):
         super().__init__()
         if num_heads % num_kv_heads:
             raise ValueError(f"num_heads ({num_heads}) must be a multiple of "
@@ -98,12 +109,26 @@ class LlamaAttention(nn.Module):
         self.o = dense((num_heads, head_dim), (d_model,))
         self.groups = num_heads // num_kv_heads
         self.rope_theta = rope_theta
-        self.attn = _attention_fn(attn_impl, sp_axis)
+        self.attn = _attention_fn(attn_impl, sp_group)
+        # GQA + Ulysses: the K/V heads travel unrepeated
+        self.sp_group, self.kv_inner = sp_group, None
+        if (self.groups > 1 and sp_group is not None
+                and attn_impl in ("ulysses", "flash")
+                and num_kv_heads % group_size(sp_group) == 0):
+            self.kv_inner = (_attention_fn("flash") if attn_impl == "flash"
+                             else full_attention)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         q = _rope(self.q(x), positions, self.rope_theta)
         k = _rope(self.k(x), positions, self.rope_theta)
         v = self.v(x)
+        if self.kv_inner is not None:
+            def grouped(q_, k_, v_, *, causal, scale=None):
+                return self.kv_inner(q_, _repeat_kv(k_, self.groups),
+                                     _repeat_kv(v_, self.groups),
+                                     causal=causal, scale=scale)
+            return self.o(ulysses_attention(q, k, v, group=self.sp_group,
+                                            causal=True, attn_fn=grouped))
         if self.groups > 1:
             k, v = _repeat_kv(k, self.groups), _repeat_kv(v, self.groups)
         return self.o(self.attn(q, k, v, causal=True))
@@ -130,12 +155,12 @@ class LlamaBlock(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
                  mlp_dim: int, dtype: torch.dtype, attn_impl: str,
-                 generator: torch.Generator, sp_axis: Optional[str] = None,
+                 generator: torch.Generator, sp_group=None,
                  rope_theta: float = 10000.0):
         super().__init__()
         self.attn_norm = RMSNorm(d_model)
         self.attn = LlamaAttention(d_model, num_heads, num_kv_heads, dtype,
-                                   attn_impl, generator, sp_axis, rope_theta)
+                                   attn_impl, generator, sp_group, rope_theta)
         self.mlp_norm = RMSNorm(d_model)
         self.mlp = LlamaMLP(d_model, mlp_dim, dtype, generator)
 
@@ -148,23 +173,25 @@ class LlamaModel(nn.Module):
     """Causal LM: ``tokens`` [batch, seq] -> f32 logits [batch, seq,
     vocab]. Parameters are drawn on the CPU from ``generator`` (seed 0
     when None) and then moved to ``device`` (the current CUDA device when
-    None), so one seed gives the same weights on every machine."""
+    None), so one seed gives the same weights on every machine. With
+    ``sp_group`` ``tokens`` is this process's block of the sequence and
+    the positions default to its global offsets."""
 
     def __init__(self, vocab_size: int, num_layers: int, d_model: int,
                  num_heads: int, num_kv_heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "full", sp_axis: Optional[str] = None,
+                 attn_impl: str = "full", sp_group=None,
                  rope_theta: float = 10000.0, remat: bool = False,
                  generator: Optional[torch.Generator] = None,
                  device: "torch.device | str | None" = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.dtype, self.remat = dtype, remat
+        self.dtype, self.remat, self.sp_group = dtype, remat, sp_group
         self.embed = Embed(vocab_size, d_model, dtype, generator)
         self.layers = nn.ModuleList([
             LlamaBlock(d_model, num_heads, num_kv_heads, mlp_dim, dtype,
-                       attn_impl, generator, sp_axis, rope_theta)
+                       attn_impl, generator, sp_group, rope_theta)
             for _ in range(num_layers)])
         self.final_norm = RMSNorm(d_model)
         self.to(resolve_device(device))
@@ -172,8 +199,8 @@ class LlamaModel(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         if positions is None:
-            positions = torch.arange(tokens.shape[1],
-                                     device=tokens.device)[None, :]
+            positions = _default_positions(tokens.shape[1], self.sp_group,
+                                           tokens.device)
         x = self.embed(tokens)
         for layer in self.layers:
             if self.remat:

@@ -11,6 +11,14 @@ tanh approximation of GELU, a bf16 residual stream, and f32 logits
 (weight-tied in the decoder, an f32 ``mlm_out`` in the encoder).
 ``from_flax`` moves a flax parameter tree over, so the two versions can be
 held against each other on the same weights.
+
+Attention is ``full``, ``flash`` (the port's kernels), ``ring`` or
+``ulysses``. With an ``sp_group`` (the JAX modules' ``sp_axis``: the
+process group the sequence is split over) each process runs its block of
+the sequence: ``ring`` and ``ulysses`` exchange K/V or heads over the
+group, ``flash`` runs the kernels inside Ulysses, positions default to the
+block's global offsets, and ``sp_lm_loss`` scores each block's last
+position against the next block's first token.
 """
 
 from __future__ import annotations
@@ -25,22 +33,47 @@ import torch.nn.functional as F
 from torch import nn
 
 from byteps_tpu_torch._device import resolve_device
-from byteps_tpu_torch.parallel.ring_attention import full_attention
+from byteps_tpu_torch.parallel._collectives import (group_rank, group_size,
+                                                    ppermute)
+from byteps_tpu_torch.parallel.ring_attention import (full_attention,
+                                                      ring_attention)
+from byteps_tpu_torch.parallel.ulysses import ulysses_attention
 
 _LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
 
 
-def _attention_fn(impl: str, sp_axis: Optional[str] = None) -> Callable:
-    if sp_axis is not None:
-        raise ValueError(f"sp_axis={sp_axis!r}: sequence parallelism is not "
-                         f"ported yet")
+def _attention_fn(impl: str, sp_group=None) -> Callable:
+    if impl not in ("full", "flash", "ring", "ulysses"):
+        raise ValueError(
+            f"attn_impl must be full|flash|ring|ulysses, got {impl!r}")
     if impl == "flash":
         from byteps_tpu_torch.ops.flash_attention import flash_attention
-        return flash_attention
+        if sp_group is None:
+            return flash_attention
+        # sequence parallel + the kernels: Ulysses reshards to whole
+        # sequences on each process, the kernels run the inner attention
+        return partial(ulysses_attention, group=sp_group,
+                       attn_fn=flash_attention)
     if impl == "full":
+        if sp_group is not None:
+            raise ValueError(
+                "attn_impl='full' attends within each process's sequence "
+                "block only, which is silently wrong under sequence "
+                "parallelism; use 'ring', 'ulysses', or 'flash' with "
+                "sp_group")
         return full_attention
-    raise ValueError(f"attn_impl must be full|flash (ring and ulysses are "
-                     f"not ported yet), got {impl!r}")
+    if sp_group is None:
+        return full_attention
+    if impl == "ring":
+        return partial(ring_attention, group=sp_group)
+    return partial(ulysses_attention, group=sp_group)
+
+
+def _default_positions(s: int, sp_group, device) -> torch.Tensor:
+    """Global position ids [1, s] of this process's block: under sequence
+    parallelism rank r of ``sp_group`` holds positions [r s, (r + 1) s)."""
+    return (torch.arange(s, device=device)[None, :]
+            + group_rank(sp_group) * s)
 
 
 def _normal(shape, std: float, generator: torch.Generator) -> nn.Parameter:
@@ -108,10 +141,12 @@ class LayerNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with a pluggable core (``full`` or ``flash``)."""
+    """Self-attention with a pluggable, possibly sequence-parallel core
+    (``sp_group``: the JAX module's ``sp_axis``)."""
 
     def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype,
-                 causal: bool, attn_impl: str, generator: torch.Generator):
+                 causal: bool, attn_impl: str, generator: torch.Generator,
+                 sp_group=None):
         super().__init__()
         head_dim = d_model // num_heads
         qkv = partial(Dense, (d_model,), (num_heads, head_dim), dtype,
@@ -119,7 +154,7 @@ class MultiHeadAttention(nn.Module):
         self.query, self.key, self.value = qkv(), qkv(), qkv()
         self.out = Dense((num_heads, head_dim), (d_model,), dtype, generator)
         self.causal = causal
-        self.attn = _attention_fn(attn_impl)
+        self.attn = _attention_fn(attn_impl, sp_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.query(x), self.key(x), self.value(x)
@@ -131,11 +166,11 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype, causal: bool, attn_impl: str,
-                 generator: torch.Generator):
+                 generator: torch.Generator, sp_group=None):
         super().__init__()
         self.ln_0 = LayerNorm(d_model)
         self.attention = MultiHeadAttention(d_model, num_heads, dtype, causal,
-                                            attn_impl, generator)
+                                            attn_impl, generator, sp_group)
         self.ln_1 = LayerNorm(d_model)
         self.mlp_in = Dense((d_model,), (mlp_dim,), dtype, generator)
         self.mlp_out = Dense((mlp_dim,), (d_model,), dtype, generator)
@@ -153,25 +188,27 @@ class TransformerLM(nn.Module):
 
     Parameters are drawn on the CPU from ``generator`` (seed 0 when None)
     and then moved to ``device`` (the current CUDA device when None), so
-    one seed gives the same weights on every machine.
+    one seed gives the same weights on every machine. With ``sp_group``
+    (the JAX module's ``sp_axis``) ``tokens`` is this process's block of
+    the sequence.
     """
 
     def __init__(self, vocab_size: int = 50257, num_layers: int = 12,
                  d_model: int = 768, num_heads: int = 12,
                  mlp_dim: int = 3072, max_len: int = 1024,
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "full",
+                 attn_impl: str = "full", sp_group=None,
                  generator: Optional[torch.Generator] = None,
                  device: "torch.device | str | None" = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.dtype = dtype
+        self.dtype, self.sp_group = dtype, sp_group
         self.tok_embed = Embed(vocab_size, d_model, dtype, generator)
         self.pos_embed = Embed(max_len, d_model, dtype, generator)
         self.layers = nn.ModuleList([
             TransformerLayer(d_model, num_heads, mlp_dim, dtype, True,
-                             attn_impl, generator)
+                             attn_impl, generator, sp_group)
             for _ in range(num_layers)])
         self.final_ln = LayerNorm(d_model)
         self.to(resolve_device(device))
@@ -179,8 +216,8 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         if positions is None:
-            positions = torch.arange(tokens.shape[1],
-                                     device=tokens.device)[None, :]
+            positions = _default_positions(tokens.shape[1], self.sp_group,
+                                           tokens.device)
         x = self.tok_embed(tokens) + self.pos_embed(positions)
         for layer in self.layers:
             x = layer(x)
@@ -192,24 +229,25 @@ class TransformerEncoder(nn.Module):
     """BERT-style bidirectional encoder with an MLM head; returns MLM
     logits [batch, seq, vocab] in f32. The head is ``mlm_dense`` in
     ``dtype``, GELU, ``mlm_ln`` in f32 and ``mlm_out`` in f32 (not tied).
-    Parameters are drawn and placed as in ``TransformerLM``."""
+    Parameters are drawn and placed, and ``sp_group`` splits the sequence,
+    as in ``TransformerLM``."""
 
     def __init__(self, vocab_size: int = 30522, num_layers: int = 12,
                  d_model: int = 768, num_heads: int = 12,
                  mlp_dim: int = 3072, max_len: int = 512,
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "full",
+                 attn_impl: str = "full", sp_group=None,
                  generator: Optional[torch.Generator] = None,
                  device: "torch.device | str | None" = None):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.max_len = max_len
+        self.max_len, self.sp_group = max_len, sp_group
         self.tok_embed = Embed(vocab_size, d_model, dtype, generator)
         self.pos_embed = Embed(max_len, d_model, dtype, generator)
         self.layers = nn.ModuleList([
             TransformerLayer(d_model, num_heads, mlp_dim, dtype, False,
-                             attn_impl, generator)
+                             attn_impl, generator, sp_group)
             for _ in range(num_layers)])
         self.final_ln = LayerNorm(d_model)
         self.mlm_dense = Dense((d_model,), (d_model,), dtype, generator)
@@ -222,11 +260,12 @@ class TransformerEncoder(nn.Module):
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         if positions is None:
             # flax clamps a position past the table; a CUDA lookup traps
-            if tokens.shape[1] > self.max_len:
-                raise ValueError(f"sequence length {tokens.shape[1]} "
-                                 f"exceeds max_len={self.max_len}")
-            positions = torch.arange(tokens.shape[1],
-                                     device=tokens.device)[None, :]
+            seq = tokens.shape[1] * group_size(self.sp_group)
+            if seq > self.max_len:
+                raise ValueError(f"sequence length {seq} exceeds "
+                                 f"max_len={self.max_len}")
+            positions = _default_positions(tokens.shape[1], self.sp_group,
+                                           tokens.device)
         x = self.tok_embed(tokens) + self.pos_embed(positions)
         for layer in self.layers:
             x = layer(x)
@@ -263,6 +302,35 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     v = logits.shape[-1]
     return F.cross_entropy(logits[:, :-1].reshape(-1, v).float(),
                            tokens[:, 1:].reshape(-1))
+
+
+def sp_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+               group) -> torch.Tensor:
+    """``lm_loss`` for sequence blocks split over ``group`` (the JAX
+    version's ``axis``).
+
+    Plain ``lm_loss`` on each block drops every block-boundary prediction
+    (each block loses its last position). Here each process's last
+    position is scored against the next block's first token (one ring
+    permute), only the globally last position goes unscored, and the
+    value is scaled so that the mean over ``group`` (and over any
+    data-parallel groups of disjoint batches) equals the full-sequence
+    ``lm_loss``.
+    """
+    k = group_size(group)
+    if k == 1:
+        return lm_loss(logits, tokens)
+    nxt_first = ppermute(tokens[:, 0].contiguous(), group, -1)
+    tgt = torch.cat([tokens[:, 1:], nxt_first[:, None]], dim=1)
+    v = logits.shape[-1]
+    ll = -F.cross_entropy(logits.reshape(-1, v).float(), tgt.reshape(-1),
+                          reduction="none").reshape(tgt.shape)
+    if group_rank(group) == k - 1:
+        # the last process's final position has no successor token
+        ll = ll[:, :-1]
+    b, s_local = tokens.shape
+    total = b * (k * s_local - 1)  # positions scored across the ring
+    return -ll.sum() * k / total
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:

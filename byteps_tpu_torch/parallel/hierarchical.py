@@ -14,8 +14,15 @@ one GPU, and the JAX version's mesh axes become process groups:
 ``tree_broadcast`` is a real broadcast at each level where the JAX version
 takes a masked psum, so what the other processes held (NaN, an
 uninitialised buffer) never reaches the result. A group of ``None`` is a level with one member. NCCL carries the groups on
-the card and gloo on the CPU. Every function is per-process code: each
-member of the groups calls it with its own tensors.
+the card and gloo on the CPU; a gloo group on CUDA tensors (processes that
+share a card) copies through host memory (``_collectives``). Every
+function is per-process code: each member of the groups calls it with its
+own tensors.
+
+``quantized_all_reduce`` / ``tree_quantized_all_reduce`` are the int8
+transport (``Compression.int8`` and ``int8_dcn``): each quantized level
+reduce-scatters by an all-to-all of blockwise-int8 chunks and their f32
+scales, summed in f32, and all-gathers int8 too.
 """
 
 from __future__ import annotations
@@ -25,20 +32,11 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-Group = Optional[dist.ProcessGroup]
+from byteps_tpu_torch.parallel._collectives import (
+    Group, all_gather, all_reduce_, all_to_all_single, broadcast_,
+    group_size, reduce_scatter)
+
 ReduceFn = Callable[[torch.Tensor], torch.Tensor]
-
-# Newer releases rename the flat-tensor collectives (*_single) and
-# deprecate the old names; the two take the same arguments.
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-
-
-def group_size(group: Group) -> int:
-    """Members of ``group``; a level of ``None`` has one."""
-    return dist.get_world_size(group) if group is not None else 1
 
 
 def hierarchical_all_reduce(
@@ -67,9 +65,7 @@ def hierarchical_all_reduce(
     def _slow(t):
         if dcn_reduce_fn is not None:
             return dcn_reduce_fn(t)
-        t = t.clone()
-        dist.all_reduce(t, group=dcn)
-        return t
+        return all_reduce_(t.clone(), dcn)
 
     if ici is None:
         # Single-process level: only the slow-level reduction applies.
@@ -85,13 +81,13 @@ def hierarchical_all_reduce(
         flat = torch.cat([flat, flat.new_zeros(pad)])
 
     shard = flat.new_empty(flat.numel() // ici_size)
-    _reduce_scatter(shard, flat.contiguous(), group=ici)
+    reduce_scatter(shard, flat.contiguous(), ici)
     if dcn is not None:
         shard = _slow(shard)
     if average and denom > 1:
         shard = shard / denom
     out = shard.new_empty(flat.numel())
-    _all_gather(out, shard.contiguous(), group=ici)
+    all_gather(out, shard.contiguous(), ici)
     if pad:
         out = out[:n]
     return out.reshape(orig_shape).to(orig_dtype)
@@ -169,8 +165,7 @@ def hierarchical_broadcast(
     ici_size = group_size(ici)
     for group, src in ((ici, root % ici_size), (dcn, root // ici_size)):
         if group is not None:
-            dist.broadcast(y, src=dist.get_global_rank(group, src),
-                           group=group)
+            broadcast_(y, dist.get_global_rank(group, src), group)
     return y
 
 
@@ -198,3 +193,139 @@ def _blockwise_quantize(x: torch.Tensor, block: int):
 def _blockwise_dequantize(q: torch.Tensor, scale: torch.Tensor
                           ) -> torch.Tensor:
     return (q.to(torch.float32) * scale).reshape(-1)
+
+
+def _quantized_reduce_scatter(flat: torch.Tensor, group: Group,
+                              block: int) -> torch.Tensor:
+    """int8 reduce-scatter over ``group``: quantize per destination chunk,
+    all-to-all the int8 chunks and their per-block f32 scales, sum the
+    dequantized chunks locally in f32. ``flat``'s length must divide by
+    (group size * block). Returns this process's 1/k shard of the sum."""
+    k = group_size(group)
+    chunk = flat.numel() // k
+    q, scale = _blockwise_quantize(flat, block)
+    q = q.reshape(k, chunk // block, block)
+    scale = scale.reshape(k, chunk // block, 1)
+    q_recv, s_recv = torch.empty_like(q), torch.empty_like(scale)
+    all_to_all_single(q_recv, q, group)
+    all_to_all_single(s_recv, scale, group)
+    return (q_recv.to(torch.float32) * s_recv).sum(0).reshape(-1)
+
+
+def _quantized_all_gather(shard: torch.Tensor, group: Group,
+                          block: int) -> torch.Tensor:
+    """int8 all-gather over ``group``: each process ships its quantized
+    shard and scales; every process dequantizes the concatenation."""
+    q, s = _blockwise_quantize(shard, block)
+    k = group_size(group)
+    q_all = q.new_empty((k * q.shape[0], block))
+    s_all = s.new_empty((k * s.shape[0], 1))
+    all_gather(q_all, q, group)
+    all_gather(s_all, s, group)
+    return _blockwise_dequantize(q_all, s_all)
+
+
+def quantized_all_reduce(
+    x: torch.Tensor,
+    *,
+    ici_group: Group = None,
+    dcn_group: Group = None,
+    average: bool = True,
+    block: int = 256,
+    quantize_dcn: bool = False,
+) -> torch.Tensor:
+    """Hierarchical all-reduce with int8 blockwise-quantized transport
+    (EQuARX-style): a quarter of f32's bytes on each quantized level, at
+    an error of at most half a quantization step (block max / 254) per
+    value and stage.
+
+    The ``ici`` level is quantized: its reduce-scatter is an all-to-all of
+    int8 chunks and per-block f32 scales with a local f32 sum, and its
+    all-gather ships int8. ``quantize_dcn=False`` keeps the ``dcn`` level
+    exact (an f32 all-reduce of the shard); ``quantize_dcn=True`` runs the
+    same int8 scheme over ``dcn`` too. Where only ``dcn`` has more than
+    one member, ``quantize_dcn`` makes it the one quantized level. The
+    sum is averaged (divided by the product of the levels' sizes) before
+    the all-gather.
+    """
+    ici = ici_group if group_size(ici_group) > 1 else None
+    dcn = dcn_group if group_size(dcn_group) > 1 else None
+    denom = group_size(ici) * group_size(dcn)
+
+    orig_shape, orig_dtype = x.shape, x.dtype
+    flat = x.reshape(-1)
+    n = flat.numel()
+
+    if ici is None and dcn is None:
+        return x
+    if ici is None:
+        # one process per host: dcn is the only level, quantized or not
+        if quantize_dcn:
+            ici, dcn = dcn, None
+        else:
+            flat = all_reduce_(flat.clone(), dcn)
+            if average and denom > 1:
+                flat = flat / denom
+            return flat.reshape(orig_shape).to(orig_dtype)
+
+    k = group_size(ici)
+    kd = group_size(dcn)
+    # pad so the ici shard also tiles (dcn size * block) when the dcn
+    # level is quantized too
+    pad = (-n) % (k * kd * block if (dcn is not None and quantize_dcn)
+                  else k * block)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+
+    # stage 1: int8 reduce-scatter over the fast level
+    shard = _quantized_reduce_scatter(flat, ici, block)
+
+    # stage 2: the slow level, exact or int8
+    if dcn is not None:
+        if quantize_dcn:
+            dshard = _quantized_reduce_scatter(shard, dcn, block)
+            if average:
+                dshard = dshard / denom
+            shard = _quantized_all_gather(dshard, dcn, block)
+        else:
+            all_reduce_(shard, dcn)
+            if average:
+                shard = shard / denom
+    elif average and denom > 1:
+        shard = shard / denom
+
+    # stage 3: int8 all-gather back over the fast level
+    out = _quantized_all_gather(shard, ici, block)
+    if pad:
+        out = out[:n]
+    return out.reshape(orig_shape).to(orig_dtype)
+
+
+def tree_quantized_all_reduce(
+    tree,
+    *,
+    ici_group: Group = None,
+    dcn_group: Group = None,
+    average: bool = True,
+    block: int = 256,
+    quantize_dcn: bool = False,
+):
+    """Fused variant of ``quantized_all_reduce`` for a tensor, list, tuple
+    or dict of tensors: one flat f32 buffer, one quantized collective
+    pair; the identity when both levels have one member."""
+    leaves, unflatten = tree_flatten(tree)
+    if not leaves:
+        return tree
+    if group_size(ici_group) * group_size(dcn_group) == 1:
+        return tree
+    flat = torch.cat([leaf.reshape(-1).to(torch.float32)
+                      for leaf in leaves])
+    flat = quantized_all_reduce(flat, ici_group=ici_group,
+                                dcn_group=dcn_group, average=average,
+                                block=block, quantize_dcn=quantize_dcn)
+    out, off = [], 0
+    for leaf in leaves:
+        sz = leaf.numel()
+        out.append(flat[off:off + sz].reshape(leaf.shape).to(leaf.dtype))
+        off += sz
+    return unflatten(out)

@@ -46,10 +46,11 @@ def make_stateful_train_step(
     ``make_train_step`` reduces them (mean with ``average``, else sum;
     ``compression`` and ``ps_prefix`` as there); with ``has_batch_stats``
     the model's buffers (BatchNorm's running statistics) are then averaged
-    over the local group. The returned loss is detached and, in collective
-    mode, averaged over the local group.
+    over the process groups. The returned loss is detached and, in
+    collective mode, averaged over the process groups.
     """
-    group = bps._st().group
+    st = bps._st()
+    groups = dict(ici_group=st.group, dcn_group=st.dcn_group)
     stats = list(model.buffers()) if has_batch_stats else []
 
     def forward_loss(m, batch):
@@ -63,10 +64,11 @@ def make_stateful_train_step(
     def step(batch) -> torch.Tensor:
         model.train()
         loss = train_step(model, batch)
-        if stats and _h.group_size(group) > 1:
+        if stats and _h.group_size(st.group) * _h.group_size(
+                st.dcn_group) > 1:
             with torch.no_grad():
                 for b, mean in zip(stats, _h.tree_all_reduce(
-                        stats, ici_group=group, average=True)):
+                        stats, average=True, **groups)):
                     b.copy_(mean)
         return loss
 

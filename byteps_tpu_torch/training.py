@@ -6,7 +6,10 @@ synchronous step runs backward, reduces the gradients, and applies the
 optimizer:
 
 - collective mode: the compression cast, the hierarchical all-reduce over
-  the local process group, the cast back;
+  the process groups (the local one, and a mesh's ``dcn`` group where
+  ``init`` was given a mesh), the cast back; ``Compression.int8`` and
+  ``int8_dcn`` replace the cast and the all-reduce with the quantized
+  transport;
 - PS mode: the local reduce, the compression cast, the host round trip
   through the CPU parameter servers (``ps_push_pull``), the cast back.
 
@@ -24,10 +27,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 import byteps_tpu_torch as bps
-from byteps_tpu_torch.compression import Compression, Compressor
+from byteps_tpu_torch.compression import QUANTIZED, Compression, Compressor
 from byteps_tpu_torch.parallel import hierarchical as _h
 
 
@@ -45,12 +47,12 @@ def make_train_step(
     gradients of the parameters in ``optimizer.param_groups`` are reduced
     across workers (mean with ``average``, else sum) before
     ``optimizer.step()``. The returned loss is detached and, in collective
-    mode, averaged over the local group. ``ps_prefix`` names the gradient
+    mode, averaged over the process groups. ``ps_prefix`` names the gradient
     tensors in the PS registry (PS mode only).
     """
     st = bps._st()
     use_ps = st.config.use_ps
-    if use_ps and compression.name in ("int8_quant", "int8_quant_dcn"):
+    if use_ps and compression.name in QUANTIZED:
         raise ValueError(
             f"Compression {compression.name!r} (int8 quantized transport) "
             "only applies to collective mode. In PS mode use the C-core "
@@ -69,9 +71,7 @@ def make_train_step(
             wire = ps_push_pull([compression.compress(g) for g in grads],
                                 average=average, prefix=ps_prefix)
         else:
-            wire = _h.tree_all_reduce(
-                [compression.compress(g) for g in grads], ici_group=group,
-                average=average)
+            wire = bps._group_reduce(grads, average, compression)
         return [compression.decompress(g, d) for g, d in zip(wire, dtypes)]
 
     def step(model_or_params, batch) -> torch.Tensor:
@@ -83,9 +83,14 @@ def make_train_step(
             p.grad = g
         optimizer.step()
         loss = loss.detach()
-        if not use_ps and _h.group_size(group) > 1:
-            dist.all_reduce(loss, group=group)
-            loss = loss / _h.group_size(group)
+        if not use_ps:
+            n = 1
+            for g in (group, st.dcn_group):
+                if _h.group_size(g) > 1:
+                    loss = _h.all_reduce_(loss, g)
+                    n *= _h.group_size(g)
+            if n > 1:
+                loss = loss / n
         return loss
 
     return step

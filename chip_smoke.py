@@ -71,7 +71,22 @@ Phases, each of which raises on failure:
    spans): one uninterrupted, one whose rank 0 ends its process after
    checkpointing step 2, restarted by the launcher and resumed from the
    checkpoint. Both must end with the same parameters and AdamW moments
-   to the bit (see ``launch_phase``).
+   to the bit (see ``launch_phase``);
+9. (run right after phase 3, while this process holds little of the
+   card's memory) sequence parallelism and the int8 transport (see
+   ``sp_phase``): (a)
+   Llama-1B over one row of 8192 tokens, STEPS collective steps in this
+   process; then two processes (python chip_smoke.py --sp-worker ...)
+   share the card in a gloo group, whose collectives the port stages
+   through host memory: (b) the same model, weights, tokens and AdamW
+   under Ulysses around the flash kernels (each rank half the sequence,
+   the kernels at [1, 8192, 16, 64]) with sp_lm_loss, held to (a)'s
+   losses; (c) ring attention against (b)'s configuration at depth 2,
+   one forward and backward; (d) GPT-2 small in collective mode over the
+   pair through make_train_step with Compression.int8 and then int8_dcn,
+   and one quantized all-reduce of real gradients held to the
+   quantiser's bound. The kernel phase checks and times the kernels at
+   (b)'s shape too.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -329,6 +344,9 @@ CASES = [
     ("bert_large", 32, 128, 128, 16, 64, "bfloat16", False, None),
     # Llama-1B (phase 7): 32 query heads on K/V repeated from 4 KV heads
     ("llama1b", 4, 2048, 2048, 32, 64, "bfloat16", True, None),
+    # Llama-1B under Ulysses over 2 ranks (phase 9): 8192 tokens, half the
+    # query heads, K/V repeated inside the inner call from 2 KV heads
+    ("ulysses_8192", 1, 8192, 8192, 16, 64, "bfloat16", True, None),
     # f32: the FMA kernels
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
@@ -345,7 +363,7 @@ CASES = [
     ]
 ]
 # the main paths' shapes, timed beside their plain versions and SDPA
-TIMED = ("gpt2", "bert_large", "llama1b")
+TIMED = ("gpt2", "bert_large", "llama1b", "ulysses_8192")
 
 
 def kernel_phase():
@@ -495,12 +513,12 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
-def _tokens(device):
+def _tokens(device, rows=BATCH, seq=SEQ, vocab=50257):
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
     return torch.from_numpy(
-        rng.integers(0, 50257, size=(BATCH, SEQ)).astype(np.int64)).to(device)
+        rng.integers(0, vocab, size=(rows, seq)).astype(np.int64)).to(device)
 
 
 def _model(attn_impl="flash"):
@@ -680,9 +698,7 @@ def _evaluate(lm, model, tokens, small):
         logits = model(tokens)
     torch.cuda.synchronize()
     launches = dict(fa.LAUNCHES)
-    if launches != {"fwd_lse": 0, "fwd": lm.layers, "bwd_dq": 0,
-                    "bwd_dkv": 0}:
-        raise AssertionError(f"{lm.name} evaluation launches {launches}")
+    _check_eval_launches(lm.name, launches, lm.layers)
     if (tuple(logits.shape) != (*tokens.shape, lm.vocab)
             or not bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{lm.name} evaluation logits: bad shape or "
@@ -698,6 +714,13 @@ def _evaluate(lm, model, tokens, small):
                              f"differ by {err}")
     log(f"{lm.name}: flash vs plain-attention logits max_abs_err {err:.3e}")
     return launches, err
+
+
+def _check_eval_launches(label, launches, layers):
+    """An evaluation forward launches the forward without lse once a
+    layer and no other kernel."""
+    if launches != {"fwd_lse": 0, "fwd": layers, "bwd_dq": 0, "bwd_dkv": 0}:
+        raise AssertionError(f"{label} evaluation launches {launches}")
 
 
 def _profile_lm(label, step, model, batch, times):
@@ -1883,6 +1906,465 @@ def _launch_summary(runs, coll_losses):
     return out
 
 
+# --- phase 9: sequence parallelism and the int8 transport on one card --------
+
+SP_RANKS, SP_TIMEOUT_S = 2, 600
+# Llama-1B over one row of SP_SEQ tokens; the ring check at depth
+# SP_RING_LAYERS
+SP_SEQ, SP_RING_LAYERS = 8192, 2
+# bf16's rounding unit: the share by which a bf16 model's loss may move
+# when its attention runs in another arithmetic (ring's f32 blocks)
+BF16_UNIT = 2.0 ** -8
+# (c): the relative L2 distance allowed between ring's and Ulysses +
+# flash's gradients. The two differ in the attention's arithmetic (f32
+# blocks against bf16 tiles), 1.1-1.2 % on the card; a backward that
+# routes a gradient to the wrong rank is far beyond it (PERF.md, PR 8,
+# tools/sp_gate_controls.py).
+RING_GRAD_REL_L2 = 0.05
+
+
+def _llama_long(attn_impl="flash", sp_group=None, **kw):
+    import torch
+
+    from byteps_tpu_torch.models import Llama1B
+    return Llama1B(attn_impl=attn_impl, dtype=torch.bfloat16,
+                   sp_group=sp_group,
+                   generator=torch.Generator().manual_seed(0), **kw)
+
+
+def _long_tokens(device):
+    return _tokens(device, 1, SP_SEQ, LLAMA.vocab)
+
+
+# Phase 9 (a)'s model: Llama-1B over one row of SP_SEQ tokens
+LLAMA_LONG = LLAMA._replace(name="llama1b_8192", make=_llama_long,
+                            batch=_long_tokens, shape=(1, SP_SEQ))
+
+
+def _free():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _int8_staged_bytes(n, k, block=256):
+    """Bytes one member of a k-member gloo group stages through host
+    memory, each way counted, for one quantized_all_reduce of n f32
+    values padded to m (a multiple of k blocks), int8 and one f32 scale a
+    block: the reduce-scatter's all-to-all (m + 4m/block in, the same
+    out), the all-gather (1/k of that in, all of it out). An exact f32
+    all-reduce stages 8m."""
+    m = n + (-n) % (k * block)
+    wire = m + m // block * 4
+    return 3 * wire + wire // k
+
+
+def _sp_llama(sp, rank):
+    """(b): Llama1B(flash) with the seed-0 weights and ``sp_group``, rank
+    r holding tokens [r S/2, (r + 1) S/2) of (a)'s sequence (positions
+    global by default): an evaluation forward at the seed-0 weights, then
+    STEPS make_train_step steps of sp_lm_loss with (a)'s AdamW, the
+    gradients averaged over the sp group. The flash wrapper's inputs are
+    recorded (the inner call's shape)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import sp_lm_loss
+    from byteps_tpu_torch.parallel import _collectives as C
+    from byteps_tpu_torch.training import make_train_step
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    bps.init(group=sp)
+    local = SP_SEQ // SP_RANKS
+    tokens = _long_tokens("cuda")[:, rank * local:(rank + 1) * local]
+    model = _llama_long("flash", sp_group=sp)
+    shapes, real = set(), fa.flash_fwd
+
+    def spy(q, *a, **kw):
+        shapes.add(tuple(q.shape))
+        return real(q, *a, **kw)
+    fa.flash_fwd = spy
+    try:
+        fa.reset_launches()
+        with torch.no_grad():
+            logits = model(tokens)
+        torch.cuda.synchronize()
+        eval_launches = dict(fa.LAUNCHES)
+        if (tuple(logits.shape) != (1, local, LLAMA.vocab)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError("sp evaluation logits: bad shape or values")
+        del logits
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                weight_decay=1e-4)
+        step = make_train_step(
+            lambda m, t: sp_lm_loss(m(t), t, sp), opt)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        C.reset_bytes()
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            loss = step(model, tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        launches, moved = dict(fa.LAUNCHES), dict(C.BYTES)
+    finally:
+        fa.flash_fwd = real
+    out = {"losses": losses, "step_ms": times, "launches": launches,
+           "eval_launches": eval_launches,
+           "flash_shapes": sorted(shapes),
+           "bytes_per_step": {k: v / STEPS for k, v in moved.items()},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, opt, step
+    bps.shutdown()
+    _free()
+    return out
+
+
+def _sp_ring_check(sp, rank):
+    """(c): the same configuration at depth SP_RING_LAYERS, one forward
+    and backward of sp_lm_loss under ``ring`` (plain f32 block attention,
+    K/V round the ring) and under (b)'s Ulysses + flash, from the same
+    seed-0 weights. Returns what (c)'s gates read."""
+    import torch
+
+    from byteps_tpu_torch.models import sp_lm_loss
+    from byteps_tpu_torch.parallel import _collectives as C
+
+    local = SP_SEQ // SP_RANKS
+    tokens = _long_tokens("cuda")[:, rank * local:(rank + 1) * local]
+    runs = {}
+    for impl in ("ring", "flash"):
+        model = _llama_long(impl, sp_group=sp, num_layers=SP_RING_LAYERS)
+        C.reset_bytes()
+        t0 = time.perf_counter()
+        logits = model(tokens)
+        loss = sp_lm_loss(logits, tokens, sp)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[impl] = {
+            "ms": (time.perf_counter() - t0) * 1e3, "loss": loss.item(),
+            "logits": logits.detach(), "bytes": dict(C.BYTES),
+            "grad": torch.cat([p.grad.reshape(-1).float()
+                               for p in model.parameters()]),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del model, logits, loss
+        _free()
+    ring, flash = runs["ring"], runs["flash"]
+    out = {
+        "losses": {k: r["loss"] for k, r in runs.items()},
+        "ms": {k: r["ms"] for k, r in runs.items()},
+        "bytes": {k: r["bytes"] for k, r in runs.items()},
+        "peak_memory_gb": {k: r["peak_memory_gb"] for k, r in runs.items()},
+        "logits_max_abs_err": (ring["logits"] - flash["logits"]).abs()
+        .max().item(),
+        "grad_rel_l2": ((ring["grad"] - flash["grad"]).norm()
+                        / flash["grad"].norm()).item()}
+    del runs, ring, flash
+    _free()
+    return out
+
+
+def _int8_bound(grads, exact, group, block=256):
+    """Element-wise bound of |tree_quantized_all_reduce - exact average|
+    over ``group`` (k members, one quantized level, blocks of ``block``),
+    derived from the quantiser: each member rounds its value to the
+    nearest of 255 steps of its block's max / 127, an error of at most
+    half a step, and the stage-1 sum is averaged: sum_r s_r / (2k). The
+    averaged shard is quantized once more for the all-gather, half a step
+    of its own block's max, which is at most the exact average's block max
+    plus the stage-1 error: (max|exact| + e1) / 254. The f32 products,
+    sum and division round a few times at 2^-24 of values at most that
+    max: 1e-6 of it. A block of zeros, which the quantiser keeps exact,
+    gets the smallest normal f32 as its limit."""
+    import torch
+
+    from byteps_tpu_torch.parallel import tree_all_reduce
+    from byteps_tpu_torch.parallel._collectives import group_size
+
+    k = group_size(group)
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    want = torch.cat([g.reshape(-1).float() for g in exact])
+    n = flat.numel()
+    pad = (-n) % (k * block)
+    flat = torch.cat([flat, flat.new_zeros(pad)]).reshape(-1, block)
+    want = torch.cat([want, want.new_zeros(pad)]).reshape(-1, block)
+    steps = flat.abs().amax(dim=1) / 127.0
+    e1 = tree_all_reduce(steps, ici_group=group, average=False) / (2 * k)
+    ymax = want.abs().amax(dim=1) + e1
+    bound = e1 + ymax / 254.0 + 1e-6 * ymax + torch.finfo(torch.float32).tiny
+    return bound[:, None].expand(-1, block).reshape(-1)[:n]
+
+
+def _sp_int8(sp, rank):
+    """(d): GPT2Small(flash) with the seed-0 weights on rows [4r, 4r + 4)
+    of phase 3's batch, the pair in collective mode. One
+    tree_quantized_all_reduce of the gradients at the seed-0 weights
+    against the exact f32 average (``_int8_bound``); then
+    make_train_step(compression=int8) with the pair as the ici group,
+    STEPS steps, and the same with int8_dcn and the pair as the dcn
+    group."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.compression import Compression
+    from byteps_tpu_torch.parallel import (Mesh, tree_all_reduce,
+                                           tree_quantized_all_reduce)
+    from byteps_tpu_torch.parallel import _collectives as C
+    from byteps_tpu_torch.training import make_train_step
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    half = BATCH // SP_RANKS
+    tokens = _tokens("cuda")[rank * half:(rank + 1) * half]
+    out = {}
+    # the pair as the ici level, then as the dcn level
+    for name, shape in (("int8", (1, SP_RANKS)), ("int8_dcn", (SP_RANKS, 1))):
+        bps.init(mesh=Mesh(shape, ("dcn", "ici")))
+        model = _model()
+        out["n_params"] = sum(p.numel() for p in model.parameters())
+        if name == "int8":
+            _loss_fn(model, tokens).backward()
+            grads = [p.grad.detach().clone() for p in model.parameters()]
+            model.zero_grad(set_to_none=True)
+            got = tree_quantized_all_reduce(grads, ici_group=sp)
+            exact = tree_all_reduce(grads, ici_group=sp)
+            bound = _int8_bound(grads, exact, sp)
+            err = torch.cat([(a - b).reshape(-1).abs().float()
+                             for a, b in zip(got, exact)])
+            out["quantized_err_over_bound"] = (err / bound).max().item()
+            out["quantized_max_abs_err"] = err.max().item()
+            del grads, got, exact, bound, err
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                weight_decay=1e-4)
+        step = make_train_step(_loss_fn, opt,
+                               compression=getattr(Compression, name))
+        losses, times = [], []
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        C.reset_bytes()
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            loss = step(model, tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        out[name] = {"losses": losses, "step_ms": times,
+                     "launches": dict(fa.LAUNCHES),
+                     "bytes_per_step": {k: v / STEPS
+                                        for k, v in C.BYTES.items()}}
+        del model, opt, step
+        bps.shutdown()
+        _free()
+    return out
+
+
+def sp_worker(out_dir, rank, port):
+    """One of phase 9's two processes (``python chip_smoke.py --sp-worker
+    DIR --rank R --port P``): both on cuda:0 in a gloo group (NCCL refuses
+    two ranks on one device), which the port's collectives stage through
+    host memory. Runs (b), (c) and (d) and writes DIR/rank<r>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.parallel import Mesh
+
+    torch.cuda.set_device(0)
+    os.environ["BYTEPS_PS_MODE"] = "collective"
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=SP_RANKS,
+        timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    try:
+        sp = Mesh((SP_RANKS,), ("sp",)).group("sp")
+        t0 = time.perf_counter()
+        rec = {"b": _sp_llama(sp, rank)}
+        log(f"sp worker {rank}: (b) done at {time.perf_counter() - t0:.1f} s")
+        rec["c"] = _sp_ring_check(sp, rank)
+        log(f"sp worker {rank}: (c) done at {time.perf_counter() - t0:.1f} s")
+        rec["d"] = _sp_int8(sp, rank)
+        log(f"sp worker {rank}: (d) done at {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _run_sp_workers():
+    """Start both sp workers (``python chip_smoke.py --sp-worker``) in a
+    session of their own, wait for both, kill whatever is left; returns
+    their records."""
+    import shutil
+    import signal
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    try:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+        port = _free_port()
+        procs = []
+        for rank in range(SP_RANKS):
+            out = open(os.path.join(tmp, f"worker{rank}.log"), "w")
+            procs.append((out, subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--sp-worker", tmp, "--rank", str(rank), "--port",
+                 str(port)], env=env, cwd=HERE, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)))
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        rcs = []
+        for out, p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0, deadline
+                                              - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        for out, p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+            out.close()
+        for rank, (out, _) in enumerate(procs):
+            with open(out.name) as f:
+                text = f.read()
+            log(f"--- sp worker {rank} (exit {rcs[rank]}) ---\n"
+                + text[-6000 if rcs[rank] != 0 else -600:])
+        if rcs != [0] * SP_RANKS:
+            raise AssertionError(f"sp workers exited {rcs}")
+        recs = []
+        for rank in range(SP_RANKS):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                recs.append(json.load(f))
+        return recs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _nccl_never_stages():
+    """A one-process NCCL group on the card: the port's collectives run it
+    in place, with no byte staged through host memory. Returns the staged
+    bytes (0)."""
+    import torch
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.parallel import _collectives as C
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        x = torch.ones(1024, device="cuda")
+        C.reset_bytes()
+        if C.stages(dist.group.WORLD, x):
+            raise AssertionError("an NCCL group would stage through host")
+        C.all_reduce_(x, dist.group.WORLD)
+        torch.cuda.synchronize()
+        if C.BYTES["staged"] != 0 or not bool((x == 1).all()):
+            raise AssertionError(f"NCCL all_reduce staged "
+                                 f"{C.BYTES['staged']} bytes")
+        return C.BYTES["staged"]
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_phase(coll_losses):
+    """Phase 9. (a) Llama-1B (flash, bf16, seed-0 weights, f32 parameters
+    and (a)'s AdamW as phase 7's) over one row of SP_SEQ tokens from
+    default_rng(0), STEPS collective steps in this process, freed before
+    (b). Then two processes on the card in a gloo group, whose
+    collectives the port stages through host memory (``sp_worker``): (b)
+    the same model and tokens under Ulysses + flash over the pair, (c)
+    ring against (b)'s configuration at depth 2, (d) GPT-2 small through
+    the int8 transport. Gates, each written before the run that first
+    read it:
+    - (b) on each rank: the step-1 loss equal to (a)'s to rtol 1e-5 (the
+      logits are (a)'s; only the f32 mean's order differs), the later
+      ones within ``_losses_match``'s bf16 bound; #1, #3 and #4 launched
+      22 times a step and #2 never in training; the evaluation forward
+      launches #2 22 times and nothing else; every flash call at [1,
+      seq, heads / 2, head dim];
+    - (c): ring and Ulysses + flash logits within 0.1 (``_evaluate``'s
+      bound for flash against plain attention), losses within BF16_UNIT,
+      gradients within RING_GRAD_REL_L2 (relative L2), K/V sent round
+      the ring;
+    - (d): the step-1 loss (the mean over the pair) equal to phase 3's to
+      rtol 1e-5, the quantized all-reduce within ``_int8_bound`` of the
+      exact average, int8_dcn's losses equal to int8's to the bit (one
+      quantized level either way), 12 launches a step, and each step
+      staging exactly the int8 transport's bytes (``_int8_staged_bytes``)
+      plus the loss mean's 8;
+    - a one-process NCCL group stages nothing."""
+    import torch
+
+    import byteps_tpu_torch as bps
+
+    lm = LLAMA_LONG
+    os.environ["BYTEPS_PS_MODE"] = "collective"
+    bps.init()
+    try:
+        model, step, _, losses, times, _, launches, peak_gb = _train(
+            lm.name, lm)
+        ref = _summary(lm, losses, times, launches, peak_gb)
+        heads, head_dim = model.layers[0].attn.q.kernel.shape[-2:]
+        del model, step
+    finally:
+        bps.shutdown()
+    _free()
+    nccl_staged = _nccl_never_stages()
+    held_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
+               "reserved": torch.cuda.memory_reserved() / 1e9}
+    log("before phase 9's processes this one holds (GB):",
+        json.dumps(held_gb))
+
+    recs = _run_sp_workers()
+    for rank, rec in enumerate(recs):
+        b, c, d = rec["b"], rec["c"], rec["d"]
+        label = f"llama1b_sp2 rank {rank}"
+        _losses_match(label, b["losses"], losses, wire="bfloat16")
+        _check_launches(label, b["launches"], lm.layers, STEPS)
+        _check_eval_launches(label, b["eval_launches"], lm.layers)
+        if b["flash_shapes"] != [[1, SP_SEQ, heads // SP_RANKS, head_dim]]:
+            raise AssertionError(f"{label} flash shapes {b['flash_shapes']}")
+        ring_loss, flash_loss = c["losses"]["ring"], c["losses"]["flash"]
+        if not (c["logits_max_abs_err"] <= 0.1
+                and c["grad_rel_l2"] <= RING_GRAD_REL_L2
+                and abs(ring_loss - flash_loss) <= BF16_UNIT
+                * abs(flash_loss)
+                and c["bytes"]["ring"]["ppermute"] > 0):
+            raise AssertionError(f"ring check rank {rank}: {c}")
+        if not abs(d["int8"]["losses"][0] - coll_losses[0]) <= 1e-5 * abs(
+                coll_losses[0]):
+            raise AssertionError(f"int8 step-1 loss {d['int8']['losses']} "
+                                 f"vs phase 3 {coll_losses[0]}")
+        if d["int8_dcn"]["losses"] != d["int8"]["losses"]:
+            raise AssertionError(f"int8_dcn {d['int8_dcn']['losses']} != "
+                                 f"int8 {d['int8']['losses']}")
+        if not d["quantized_err_over_bound"] <= 1.0:
+            raise AssertionError(f"quantized all-reduce rank {rank}: "
+                                 f"{d['quantized_err_over_bound']} of its "
+                                 f"bound")
+        staged = _int8_staged_bytes(d["n_params"], SP_RANKS) + 8
+        for name in ("int8", "int8_dcn"):
+            _check_launches(f"{name} rank {rank}", d[name]["launches"])
+            if d[name]["bytes_per_step"]["staged"] != staged:
+                raise AssertionError(
+                    f"{name} rank {rank} staged "
+                    f"{d[name]['bytes_per_step']['staged']} bytes a step, "
+                    f"the int8 transport {staged}")
+    out = {"llama1b_8192": ref, "nccl_staged_bytes": nccl_staged,
+           "main_process_held_gb": held_gb, "ranks": recs}
+    log("phase 9 (sequence parallel, int8):", json.dumps({
+        "a": {k: ref[k] for k in ("losses", "median_step_ms",
+                                  "peak_memory_gb")},
+        "ranks": recs}))
+    return out
+
+
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
@@ -1921,12 +2403,20 @@ def main() -> int:
     sass = tensor_core_sass()
     errors, timing = kernel_phase()
     coll_losses, coll_times, coll_launches, profile = collective_phase()
+    # phase 9 runs here, while this process holds little of the card: its
+    # two processes need 27 GB each, and after phases 4-8 this process
+    # kept enough that they ran out of memory
+    sp = sp_phase(coll_losses)
     alone, paths = ps_phase(coll_losses)
     plain = paths.pop("ps")
     images = resnet_phase()
     encoder = bert_phase()
     llama = llama_phase()
     launched = launch_phase(coll_losses)
+    torch.cuda.empty_cache()
+    held_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
+               "reserved": torch.cuda.memory_reserved() / 1e9}
+    log("after phase 8 this process holds (GB):", json.dumps(held_gb))
 
     def staging_ms(run):
         return {"step": _median(run["step_ms"]),
@@ -1959,6 +2449,8 @@ def main() -> int:
         **encoder,
         **llama,
         "launched_fleets": launched,
+        "sequence_parallel": sp,
+        "memory_held_after_phase8_gb": held_gb,
         "sdpa_fwd_bwd_ms": {case: timing[case]["sdpa_fwd_bwd_ms"]
                             for case in TIMED},
         "bwd_pair": {case: timing[case]["bwd_pair"] for case in TIMED},
@@ -1981,7 +2473,14 @@ def main() -> int:
                "gpt2_medium": encoder["gpt2_medium"]["launches"],
                "llama1b": llama["llama1b"]["collective"]["launches"],
                "llama1b_remat": llama["llama1b"]["remat"]["launches"],
-               "launched_fleet_u": launched["launches"]}
+               "launched_fleet_u": launched["launches"],
+               "llama1b_8192": sp["llama1b_8192"]["launches"],
+               # rank 0 of the two SP processes: training steps, and for
+               # fwd its evaluation forward
+               "llama1b_sp2": {**sp["ranks"][0]["b"]["launches"],
+                               "fwd": sp["ranks"][0]["b"]["eval_launches"][
+                                   "fwd"]},
+               "gpt2_int8_rank0": sp["ranks"][0]["d"]["int8"]["launches"]}
     kernels = []
     for name, (fn, replaces) in REPLACES.items():
         kernels.append({
@@ -2004,16 +2503,21 @@ def main() -> int:
 def _worker_main(argv) -> int:
     import argparse
     p = argparse.ArgumentParser(prog="chip_smoke.py --launched-worker")
-    p.add_argument("--launched-worker", metavar="DIR", required=True)
+    p.add_argument("--launched-worker", metavar="DIR")
     p.add_argument("--preempt-after", type=int, default=0)
     p.add_argument("--trace", action="store_true")
+    p.add_argument("--sp-worker", metavar="DIR")
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--port", type=int, default=0)
     args = p.parse_args(argv)
     sys.path.insert(0, HERE)
+    if args.sp_worker:
+        return sp_worker(args.sp_worker, args.rank, args.port)
     return launched_worker(args.launched_worker, args.preempt_after,
                            args.trace)
 
 
 if __name__ == "__main__":
-    if "--launched-worker" in sys.argv[1:]:
+    if {"--launched-worker", "--sp-worker"} & set(sys.argv[1:]):
         sys.exit(_worker_main(sys.argv[1:]))
     sys.exit(main())

@@ -212,6 +212,7 @@ def _free_port():
 
 
 def _gloo_worker(rank, world, port, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:

@@ -26,6 +26,17 @@ from byteps_tpu_torch.ops.flash_attention import flash_attention
 fa_mod = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    # One intra-op thread: under pytest -n 6 (xdist) the torch processes'
+    # threads oversubscribed the host until the JAX package's 8-device
+    # CPU collectives in other test workers timed out and aborted.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(rng, b=2, s=64, h=3, d=32):
     return [rng.standard_normal((b, s, h, d)).astype(np.float32)
             for _ in range(3)]

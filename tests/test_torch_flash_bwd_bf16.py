@@ -39,6 +39,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    # One intra-op thread: under pytest -n 6 (xdist) the torch processes'
+    # threads oversubscribed the host until the JAX package's 8-device
+    # CPU collectives in other test workers timed out and aborted.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(case):
     b, s_q, s_k, h, d, causal, window = CASES[case]
     rng = np.random.default_rng(0)

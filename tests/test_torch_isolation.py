@@ -39,6 +39,11 @@ def test_port_imports_no_jax_and_nothing_of_byteps_tpu():
                 "byteps_tpu_torch.models.resnet", "byteps_tpu_torch.models.vgg",
                 "byteps_tpu_torch.models.mlp", "byteps_tpu_torch.stateful",
                 "byteps_tpu_torch.parallel.hierarchical",
+                "byteps_tpu_torch.parallel.mesh",
+                "byteps_tpu_torch.parallel.ulysses",
+                "byteps_tpu_torch.parallel.ring_attention",
+                "byteps_tpu_torch.parallel._collectives",
+                "byteps_tpu_torch.compression",
                 "byteps_tpu_torch.monitor.http",
                 "byteps_tpu_torch.monitor.timeline",
                 "byteps_tpu_torch.monitor.insight",

@@ -90,6 +90,9 @@ TENSOR_CORE_CASES = {
     "bert_large": (32, 128, 128, 16, 64, False, None),
     # Llama-1B (seq 2048, batch 4, 32 query heads on GQA-repeated K/V)
     "llama1b": (4, 2048, 2048, 32, 64, True, None),
+    # Llama-1B under Ulysses over 2 ranks (chip_smoke.py phase 9): the
+    # whole 8192-token sequence for half the query heads
+    "ulysses_8192": (1, 8192, 8192, 16, 64, True, None),
     "d16_one_query": (2, 1, 77, 3, 16, True, None),
     "bh1000": (10, 130, 130, 100, 64, True, None),
 }
@@ -100,7 +103,8 @@ TENSOR_CORE_CASES = {
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_tensor_core_forward_matches_plain(case, dtype):
     """The bf16/f16 forward (wgmma, TMA) with and without lse, at the
-    attention shapes of GPT-2, BERT-Large and Llama-1B, with a single
+    attention shapes of GPT-2, BERT-Large, Llama-1B and Llama-1B under
+    Ulysses (8192 tokens, 16 heads a rank), with a single
     query row, and with more (batch, head) pairs than the card has SMs
     many times over."""
     if not torch.cuda.is_available():

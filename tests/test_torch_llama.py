@@ -8,7 +8,9 @@ the flax modules of ``byteps_tpu/models/llama.py``.
   JAX flash kernel in interpret mode on the CPU, the port's plain
   versions), and the same model with K/V heads tiled instead of repeated
   in a row, which must disagree;
-- causality, ``remat`` against no remat, the heads check, ``sp_axis``;
+- causality, ``remat`` against no remat, the heads check, ``full``
+  attention under sequence parallelism (it raises, as the reference does;
+  ``tests/test_torch_seq_parallel.py`` holds the SP paths);
 - ``Llama1B`` and ``Llama7B`` parameter shapes against ``jax.eval_shape``
   with no weights allocated (the port on the meta device);
 - three ``make_train_step`` steps against the JAX step on a one-device
@@ -192,9 +194,13 @@ def test_heads_must_be_a_multiple_of_kv_heads():
         llama.LlamaTiny(num_heads=4, num_kv_heads=3, device="cpu")
 
 
-def test_sequence_parallel_is_not_ported():
+def test_full_attention_under_sp_raises():
+    """``full`` attention under a sequence-parallel group would attend
+    within each block only, so it is refused, as the reference does
+    (tests/test_torch_seq_parallel.py holds the SP paths). The check comes before the group is used, so
+    any object stands in for one here."""
     with pytest.raises(ValueError, match="sequence parallelism"):
-        llama.LlamaTiny(attn_impl="flash", sp_axis="sp", device="cpu")
+        llama.LlamaTiny(attn_impl="full", sp_group=object(), device="cpu")
 
 
 def test_causality():

@@ -46,10 +46,16 @@ LR = 1e-3
 
 @pytest.fixture(autouse=True)
 def _port_state(monkeypatch):
+    # One intra-op thread, here and in the spawned workers: under pytest
+    # -n 6 (xdist) their load starved the JAX package's 8-device CPU
+    # collectives in other test workers until XLA aborted them.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     monkeypatch.setenv("BYTEPS_PS_MODE", "collective")
     yield
     if bps.initialized():
         bps.shutdown()
+    torch.set_num_threads(threads)
 
 
 def _torch_loss(model, tokens):
@@ -120,6 +126,7 @@ def _free_port():
 
 
 def _gloo_worker(rank, world, port, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
@@ -231,6 +238,7 @@ def test_two_process_gloo_collectives(tmp_path):
 
 def _grid_worker(rank, world, port, out_dir):
     """Four processes as a 2 (dcn) x 2 (ici) grid: rank = ici + 2 * dcn."""
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:

@@ -30,6 +30,17 @@ CFG = dict(vocab_size=128, num_layers=2, d_model=64, num_heads=4,
            mlp_dim=128, max_len=32)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    # One intra-op thread: under pytest -n 6 (xdist) the torch processes'
+    # threads oversubscribed the host until the JAX package's 8-device
+    # CPU collectives in other test workers timed out and aborted.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flax_params(model, tokens):
     params = model.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
     return jax.tree_util.tree_map(np.asarray, params)
@@ -96,8 +107,9 @@ def test_from_flax_names_every_parameter():
 
 
 def test_unknown_attn_impl_raises():
+    # a typo of "ulysses", as the reference's test_bogus_attn_impl_rejected
     with pytest.raises(ValueError, match="attn_impl"):
-        TransformerLM(**CFG, attn_impl="ring", device="cpu")
+        TransformerLM(**CFG, attn_impl="ulyses", device="cpu")
 
 
 def test_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
