@@ -58,6 +58,7 @@ import collections
 import os
 import threading
 import time
+import weakref
 from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -137,9 +138,18 @@ class _TapState:
         self.copy_stream = torch.cuda.Stream(cuda[0]) if cuda else None
         self.declare_all(self.params)
         self.stager = ps.Stager(f"bps_stager_{prefix}")
+        # A hook lives on its parameter, where the garbage collector does
+        # not look: one that held this state would keep it, and every
+        # parameter and gradient it lists, alive for the life of the
+        # process. So the hooks hold it weakly, and once the state is
+        # dropped its hooks are removed and its stager stopped.
+        me = weakref.ref(self)
         self.hooks = [p.register_post_accumulate_grad_hook(
-            partial(self._on_grad, i)) for i, p in enumerate(self.params)
+            partial(_hook, me, i)) for i, p in enumerate(self.params)
         ] if hooks else []
+        self._release = weakref.finalize(self, _release, self.hooks,
+                                         self.stager)
+        self._release.atexit = False
 
     def pad_unit(self, idx: int) -> int:
         """Leaf ``idx``'s flat gradient is padded to this multiple (the
@@ -400,11 +410,22 @@ class _TapState:
             pass
 
     def close(self) -> None:
-        """Remove the hooks and stop the stager."""
-        for h in self.hooks:
-            h.remove()
-        self.hooks = []
-        self.stager.close()
+        """Remove the hooks and stop the stager (dropping the state does
+        the same)."""
+        self._release()
+
+
+def _hook(state_ref, i: int, p: torch.Tensor) -> None:
+    state = state_ref()
+    if state is not None:
+        state._on_grad(i, p)
+
+
+def _release(hooks, stager) -> None:
+    for h in hooks:
+        h.remove()
+    hooks.clear()
+    stager.close()
 
 
 def _hooked_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,

@@ -1,13 +1,19 @@
 """Collectives over ``torch.distributed`` groups that autograd carries.
 
-``all_to_all`` and ``ppermute`` are the counterparts of
-``lax.all_to_all(..., tiled=True)`` and ``lax.ppermute``: each is a
-``torch.autograd.Function`` whose backward is the transposed collective
-(the inverse all-to-all, the permutation run the other way round), which
-is the gradient ``jax.grad`` takes through them. ``torch.distributed``
-ops carry no autograd of their own. Both go through
-``all_to_all_single``: a ring permutation is an all-to-all whose splits
-send everything to one rank and receive everything from one rank.
+``all_to_all``, ``ppermute`` and ``psum`` are the counterparts of
+``lax.all_to_all(..., tiled=True)``, ``lax.ppermute`` and ``lax.psum``:
+each is a ``torch.autograd.Function`` whose backward is the transposed
+collective (the inverse all-to-all, the permutation run the other way
+round, and for ``psum`` a ``psum`` of the gradients), which is the
+gradient ``jax.grad`` takes through them under ``shard_map`` with
+``check_vma=False``. So a loss that every member computes whole after a
+``psum`` is divided by the group's size, and the gradients of parameters
+the members hold alike are summed over the group afterwards, as the JAX
+package's tests do. ``pmean`` is ``psum`` over the size.
+``torch.distributed`` ops carry no autograd of their own. ``all_to_all``
+and ``ppermute`` both go through ``all_to_all_single``: a ring
+permutation is an all-to-all whose splits send everything to one rank
+and receive everything from one rank.
 
 NCCL carries them on the card and gloo on the CPU. Two processes that
 share one card run them in a gloo group, which NCCL cannot form. That
@@ -32,10 +38,10 @@ import torch.distributed as dist
 
 Group = Optional[dist.ProcessGroup]
 
-# Bytes this process sent into all-to-alls and ring permutations (their
-# inputs, the share it keeps included), and bytes staged through host
-# memory (device to host plus host to device).
-BYTES = {"all_to_all": 0, "ppermute": 0, "staged": 0}
+# Bytes this process sent into all-to-alls, ring permutations and
+# differentiable psums (their inputs, the share it keeps included), and
+# bytes staged through host memory (device to host plus host to device).
+BYTES = {"all_to_all": 0, "ppermute": 0, "psum": 0, "staged": 0}
 
 # Newer releases rename the flat-tensor collectives (*_single) and
 # deprecate the old names; the two take the same arguments.
@@ -198,3 +204,34 @@ def ppermute(x: torch.Tensor, group: Group, shift: int) -> torch.Tensor:
     if shift % n == 0:
         return x
     return _PPermute.apply(x, group, shift)
+
+
+def _sum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    BYTES["psum"] += out.numel() * out.element_size()
+    return all_reduce_(out, group)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``lax.psum(x, axis)``: the sum of every member's ``x``, on every
+    member. Its backward is a ``psum`` of the gradients."""
+    if group_size(group) == 1:
+        return x
+    return _PSum.apply(x, group)
+
+
+def pmean(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``lax.pmean(x, axis)``: ``psum`` over the group's size."""
+    n = group_size(group)
+    return x if n == 1 else psum(x, group) / n

@@ -95,9 +95,12 @@ def hierarchical_all_reduce(
 
 def tree_flatten(tree):
     """(leaves, unflatten) of a tensor, or of a list, tuple or dict of
-    tensors (one level; dicts keep their insertion order)."""
+    tensors (one level; dicts keep their insertion order); a module's
+    leaves are its parameters, and unflatten gives them as a list."""
     if isinstance(tree, torch.Tensor):
         return [tree], lambda ls: ls[0]
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters()), list
     if isinstance(tree, dict):
         keys = list(tree)
         return [tree[k] for k in keys], lambda ls: dict(zip(keys, ls))

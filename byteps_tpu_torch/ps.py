@@ -402,7 +402,9 @@ class Stager:
 
     def close(self) -> None:
         self._jobs.put(None)
-        self._thread.join(timeout=60)
+        # the last reference to its owner may drop on this very thread
+        if threading.current_thread() is not self._thread:
+            self._thread.join(timeout=60)
 
     def _run(self) -> None:
         while True:
@@ -417,4 +419,7 @@ class Stager:
                 if self._error is None:
                     self._error = e
             finally:
+                # hold no job while idle: its function may be a bound
+                # method of an owner that is to be freed
+                job = fn = args = None
                 self._jobs.task_done()

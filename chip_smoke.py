@@ -86,7 +86,23 @@ Phases, each of which raises on failure:
    pair through make_train_step with Compression.int8 and then int8_dcn,
    and one quantized all-reduce of real gradients held to the
    quantiser's bound. The kernel phase checks and times the kernels at
-   (b)'s shape too.
+   (b)'s shape too;
+10. (run right after phase 9) tensor, pipeline and expert parallelism,
+   ZeRO and the dry run (see ``par_phase``), on two processes in a gloo
+   group as phase 9's, each held to a one-process run made first in
+   this process: (a) GPT-2 medium (flash, bf16, seed-0 weights) over 4 x
+   1024 tokens with TP = 2 (``tp_attention`` around the flash kernels at
+   [4, 1024, 8, 64], ``tp_mlp``), two forward and backward passes and an
+   evaluation forward, against the dense model; (b) its 24 layers as two
+   stages of 12, M = 4 microbatches of [1, 1024], through
+   ``pipeline_1f1b`` and ``gpipe``, against the same layers run
+   microbatch by microbatch; (c) 3 AdamW steps of
+   ``make_zero_train_step`` against ``make_train_step``, rows [4r, 4r +
+   4) of 8 x 1024 on rank r; (d) the MoE layer at Switch-Base-8's width
+   (d 768, d_ff 3072, 8 experts) with EP = 2, 4096 tokens a rank, top-1
+   (capacity factor 1.25) and top-2 (2.5), against the dense layer; (e)
+   ``dryrun_multichip(2)``. The kernel phase checks and times the
+   kernels at (a)'s and (b)'s shapes too.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -270,13 +286,13 @@ def _live_pairs(s_q, s_k, causal, window):
     return total
 
 
-def _ops_per_pair(name, dtype):
+def _ops_per_pair(name):
     """Matrix-product operations per live (query, key) pair and head-dim
-    element: the forward's S and P V (2 + 2), dQ's S, dP and dS K (6),
-    dK/dV's S^T, dP^T, dS^T Q and P^T dO (8), plus 2 in bf16/f16, where
-    dV takes P^T dO twice (p as the sum of two 16-bit halves)."""
-    return {"fwd_lse": 4, "fwd": 4, "bwd_dq": 6,
-            "bwd_dkv": 8 if dtype == "float32" else 10}[name]
+    element that the function needs: the forward's S and P V (2 + 2),
+    dQ's S, dP and dS K (6), dK/dV's S^T, dP^T, dS^T Q and P^T dO (8), in
+    every dtype (the bf16/f16 kernel's second P^T dO, p split into two
+    16-bit halves, is work it adds, not work the function needs)."""
+    return {"fwd_lse": 4, "fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}[name]
 
 
 def _bound_ms(name, b, h, s_q, s_k, d, elem, causal, window, dtype):
@@ -285,7 +301,7 @@ def _bound_ms(name, b, h, s_q, s_k, d, elem, causal, window, dtype):
     (exp and the rest are not counted)."""
     q_bytes, kv_bytes = b * s_q * h * d * elem, b * s_k * h * d * elem
     row_bytes = b * h * s_q * 4  # one f32 per query row (lse, D)
-    ops = _ops_per_pair(name, dtype) * d * b * h * _live_pairs(
+    ops = _ops_per_pair(name) * d * b * h * _live_pairs(
         s_q, s_k, causal, window)
     nbytes = {"fwd_lse": 2 * q_bytes + 2 * kv_bytes + row_bytes,
               "fwd": 2 * q_bytes + 2 * kv_bytes,
@@ -347,6 +363,10 @@ CASES = [
     # Llama-1B under Ulysses over 2 ranks (phase 9): 8192 tokens, half the
     # query heads, K/V repeated inside the inner call from 2 KV heads
     ("ulysses_8192", 1, 8192, 8192, 16, 64, "bfloat16", True, None),
+    # GPT-2 medium under TP over 2 ranks (phase 10 (a)): half the heads
+    ("tp_gpt2m", 4, 1024, 1024, 8, 64, "bfloat16", True, None),
+    # GPT-2 medium's pipeline stages (phase 10 (b)): one microbatch row
+    ("pp_gpt2m", 1, 1024, 1024, 16, 64, "bfloat16", True, None),
     # f32: the FMA kernels
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
@@ -363,7 +383,8 @@ CASES = [
     ]
 ]
 # the main paths' shapes, timed beside their plain versions and SDPA
-TIMED = ("gpt2", "bert_large", "llama1b", "ulysses_8192")
+TIMED = ("gpt2", "bert_large", "llama1b", "ulysses_8192", "tp_gpt2m",
+         "pp_gpt2m")
 
 
 def kernel_phase():
@@ -485,7 +506,7 @@ def kernel_phase():
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": library[kname][0],
                 "library_ms_spread": list(library[kname][1:]),
-                "tflops": _ops_per_pair(kname, dtype) * d * pairs
+                "tflops": _ops_per_pair(kname) * d * pairs
                 / (ms * 1e-3) / 1e12,
                 "bound_share": bound / ms,
             }
@@ -1962,6 +1983,23 @@ def _int8_staged_bytes(n, k, block=256):
     return 3 * wire + wire // k
 
 
+@contextlib.contextmanager
+def _flash_shapes():
+    """The set of q shapes of every flash forward call made inside the
+    block."""
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+    shapes, real = set(), fa.flash_fwd
+
+    def spy(q, *a, **kw):
+        shapes.add(tuple(q.shape))
+        return real(q, *a, **kw)
+    fa.flash_fwd = spy
+    try:
+        yield shapes
+    finally:
+        fa.flash_fwd = real
+
+
 def _sp_llama(sp, rank):
     """(b): Llama1B(flash) with the seed-0 weights and ``sp_group``, rank
     r holding tokens [r S/2, (r + 1) S/2) of (a)'s sequence (positions
@@ -1981,13 +2019,7 @@ def _sp_llama(sp, rank):
     local = SP_SEQ // SP_RANKS
     tokens = _long_tokens("cuda")[:, rank * local:(rank + 1) * local]
     model = _llama_long("flash", sp_group=sp)
-    shapes, real = set(), fa.flash_fwd
-
-    def spy(q, *a, **kw):
-        shapes.add(tuple(q.shape))
-        return real(q, *a, **kw)
-    fa.flash_fwd = spy
-    try:
+    with _flash_shapes() as shapes:
         fa.reset_launches()
         with torch.no_grad():
             logits = model(tokens)
@@ -2012,8 +2044,6 @@ def _sp_llama(sp, rank):
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss.item())
         launches, moved = dict(fa.LAUNCHES), dict(C.BYTES)
-    finally:
-        fa.flash_fwd = real
     out = {"losses": losses, "step_ms": times, "launches": launches,
            "eval_launches": eval_launches,
            "flash_shapes": sorted(shapes),
@@ -2196,52 +2226,57 @@ def sp_worker(out_dir, rank, port):
     return 0
 
 
-def _run_sp_workers():
-    """Start both sp workers (``python chip_smoke.py --sp-worker``) in a
-    session of their own, wait for both, kill whatever is left; returns
-    their records."""
-    import shutil
+def _run_pair(flag, tmp, timeout):
+    """Start the two workers (``python chip_smoke.py FLAG TMP --rank R
+    --port P``) in sessions of their own, wait for both, kill whatever is
+    left; returns their records (TMP/rank<r>.json)."""
     import signal
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    port = _free_port()
+    procs = []
+    for rank in range(SP_RANKS):
+        out = open(os.path.join(tmp, f"worker{rank}.log"), "w")
+        procs.append((out, subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"), flag,
+             tmp, "--rank", str(rank), "--port", str(port)], env=env,
+            cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)))
+    deadline = time.monotonic() + timeout
+    rcs = []
+    for out, p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)
+    for out, p in procs:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+        out.close()
+    for rank, (out, _) in enumerate(procs):
+        with open(out.name) as f:
+            text = f.read()
+        log(f"--- {flag} {rank} (exit {rcs[rank]}) ---\n"
+            + text[-6000 if rcs[rank] != 0 else -600:])
+    if rcs != [0] * SP_RANKS:
+        raise AssertionError(f"{flag} workers exited {rcs}")
+    recs = []
+    for rank in range(SP_RANKS):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _run_sp_workers():
+    """Phase 9's two processes (``python chip_smoke.py --sp-worker``);
+    returns their records."""
+    import shutil
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
     try:
-        env = dict(os.environ)
-        env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
-        port = _free_port()
-        procs = []
-        for rank in range(SP_RANKS):
-            out = open(os.path.join(tmp, f"worker{rank}.log"), "w")
-            procs.append((out, subprocess.Popen(
-                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                 "--sp-worker", tmp, "--rank", str(rank), "--port",
-                 str(port)], env=env, cwd=HERE, stdout=out,
-                stderr=subprocess.STDOUT, start_new_session=True)))
-        deadline = time.monotonic() + SP_TIMEOUT_S
-        rcs = []
-        for out, p in procs:
-            try:
-                rcs.append(p.wait(timeout=max(1.0, deadline
-                                              - time.monotonic())))
-            except subprocess.TimeoutExpired:
-                rcs.append(None)
-        for out, p in procs:
-            try:
-                os.killpg(p.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            p.wait()
-            out.close()
-        for rank, (out, _) in enumerate(procs):
-            with open(out.name) as f:
-                text = f.read()
-            log(f"--- sp worker {rank} (exit {rcs[rank]}) ---\n"
-                + text[-6000 if rcs[rank] != 0 else -600:])
-        if rcs != [0] * SP_RANKS:
-            raise AssertionError(f"sp workers exited {rcs}")
-        recs = []
-        for rank in range(SP_RANKS):
-            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
-                recs.append(json.load(f))
-        return recs
+        return _run_pair("--sp-worker", tmp, SP_TIMEOUT_S)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2365,6 +2400,672 @@ def sp_phase(coll_losses):
     return out
 
 
+# --- phase 10: tensor, pipeline and expert parallelism, ZeRO, the dry run -----
+
+PAR_TIMEOUT_S = 600
+# (a) TP and (b) PP: GPT-2 medium over 4 x PAR_SEQ tokens (the rows of
+# (a)'s batch are (b)'s microbatches); (c) ZeRO: rows [4r, 4r + 4) of
+# ZERO_ROWS x PAR_SEQ; each from default_rng(0)
+PAR_ROWS, PAR_SEQ, ZERO_ROWS = 4, 1024, 8
+PAR_LAYERS = GPT2M.layers
+TP_PASSES, ZERO_STEPS = 2, 3
+# (d): the MoE layer at Switch-Base-8's width (the Switch Transformer's
+# base configuration: d_model 768, d_ff 3072, 8 experts), 4096 tokens a
+# rank (8 x 512, GPT-2 small's batch); capacity factor by top-k
+MOE = {"d": 768, "h": 3072, "experts": 8, "tokens": 4096}
+MOE_CF = {1: 1.25, 2: 2.5}
+# (a): relative distance allowed between a TP pass's loss and the dense
+# run's: 20x the 5.0e-6 that the sound pair read on an H100 (bf16 partial
+# products summed after rounding), a planted fault's reading beside it in
+# tools/par_gate_controls.py
+TP_LOSS_REL = 1e-4
+# (b): relative L2 distance allowed between a schedule's gradients and the
+# microbatch-wise run's. The forward is the same arithmetic on the same
+# inputs; the gradients differ only in the order of the f32 sums over
+# microbatches (GPipe's backward runs them last to first).
+PP_GRAD_REL_L2 = 1e-4
+# (d): EP against the dense layer, both in f32: the output within 1e-5
+# relative (relative L2, and the largest error against the output's
+# largest element), the weights' gradients within 1e-4 relative L2 (f32
+# sums of up to 2 x 4096 products in another order)
+MOE_OUT_REL, MOE_GRAD_REL_L2 = 1e-5, 1e-4
+
+
+def _par_tokens(device, rows=PAR_ROWS):
+    return _tokens(device, rows, PAR_SEQ)
+
+
+def _rel_l2(got, want):
+    """||got - want|| / ||want|| over two equal lists of tensors, in
+    float64."""
+    num = sum(float((a.double() - b.double()).norm() ** 2)
+              for a, b in zip(got, want))
+    den = sum(float(b.double().norm() ** 2) for b in want)
+    return math.sqrt(num / den)
+
+
+def _tp_shards(model, group):
+    """This rank's shards, as leaf tensors, of each layer's query, key
+    and value kernels (columns: its heads), out kernel (rows) and MLP
+    (mlp_in's kernel and bias by columns, mlp_out's kernel by rows)."""
+    from byteps_tpu_torch.parallel import shard_columns, shard_rows
+    shards = []
+    for layer in model.layers:
+        a = layer.attention
+        d = a.query.kernel.shape[0]
+        sh = {k: shard_columns(getattr(a, k).kernel.reshape(d, -1), group)
+              for k in ("query", "key", "value")}
+        sh["out"] = shard_rows(a.out.kernel.reshape(-1, d), group)
+        sh["mlp_in"] = shard_columns(layer.mlp_in.kernel, group)
+        sh["mlp_in_bias"] = shard_columns(layer.mlp_in.bias, group)
+        sh["mlp_out"] = shard_rows(layer.mlp_out.kernel, group)
+        shards.append({k: v.detach().clone().requires_grad_()
+                       for k, v in sh.items()})
+    return shards
+
+
+def _tp_forward(model, shards, tokens, group):
+    """GPT-2 with each layer's attention as ``tp_attention`` around the
+    flash kernels and its MLP as ``tp_mlp`` over ``group``, in the model's
+    dtype; the embedding, the layer norms, mlp_out's bias and the tied
+    head are the model's own (replicated). The attention biases are zero
+    at seed-0 init, so this is the dense model's function."""
+    import torch
+
+    from byteps_tpu_torch.ops.flash_attention import flash_attention
+    from byteps_tpu_torch.parallel import tp_attention, tp_mlp
+    from byteps_tpu_torch.parallel._collectives import group_size
+
+    dt = model.dtype
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    x = model.tok_embed(tokens) + model.pos_embed(pos)
+    heads = model.layers[0].attention.query.kernel.shape[1]
+    for layer, sh in zip(model.layers, shards):
+        y = tp_attention(
+            layer.ln_0(x).to(dt),
+            *(sh[k].to(dt) for k in ("query", "key", "value", "out")),
+            group=group, num_local_heads=heads // group_size(group),
+            causal=True, attn_fn=flash_attention)
+        x = x + y.to(x.dtype)
+        y = tp_mlp(layer.ln_1(x).to(dt), sh["mlp_in"].to(dt),
+                   sh["mlp_out"].to(dt), group=group,
+                   b_in_shard=sh["mlp_in_bias"].to(dt),
+                   b_out=layer.mlp_out.bias.to(dt))
+        x = x + y.to(x.dtype)
+    return model.tok_embed.attend(model.final_ln(x)).float()
+
+
+def _par_tp(group, rank, tmp):
+    """(a): TP_PASSES forward and backward passes of the TP GPT-2 medium
+    (the loss, whole on each rank, divided by the pair's size for the
+    backward), then an evaluation forward. Writes the last pass's shard
+    gradients and replicated parameters' gradients to TMP/tp<rank>.pt."""
+    import torch
+
+    from byteps_tpu_torch.models import lm_loss
+    from byteps_tpu_torch.parallel import _collectives as C
+    from byteps_tpu_torch.parallel._collectives import group_size
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    n = group_size(group)
+    tokens = _par_tokens("cuda")
+    model = _gpt2_medium()
+    shards = _tp_shards(model, group)
+    losses, times, grads = [], [], None
+    with _flash_shapes() as shapes:
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        C.reset_bytes()
+        for _ in range(TP_PASSES):
+            model.zero_grad(set_to_none=True)
+            for sh in shards:
+                for t in sh.values():
+                    t.grad = None
+            t0 = time.perf_counter()
+            loss = lm_loss(_tp_forward(model, shards, tokens, group), tokens)
+            (loss / n).backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            prev, grads = grads, [t.grad for sh in shards for t in sh.values()]
+        launches, moved = dict(fa.LAUNCHES), dict(C.BYTES)
+        same = all(torch.equal(a, b) for a, b in zip(prev, grads))
+        fa.reset_launches()
+        with torch.no_grad():
+            eval_loss = lm_loss(_tp_forward(model, shards, tokens, group),
+                                tokens).item()
+        torch.cuda.synchronize()
+        eval_launches = dict(fa.LAUNCHES)
+    torch.save({"shards": [{k: t.grad.cpu() for k, t in sh.items()}
+                           for sh in shards],
+                "replicated": {k: p.grad.cpu()
+                               for k, p in model.named_parameters()
+                               if p.grad is not None}},
+               os.path.join(tmp, f"tp{rank}.pt"))
+    out = {"losses": losses, "ms": times, "eval_loss": eval_loss,
+           "heads": list(model.layers[0].attention.query.kernel.shape[1:]),
+           "passes_equal": same, "launches": launches,
+           "eval_launches": eval_launches, "flash_shapes": sorted(shapes),
+           "bytes_per_pass": {k: v / TP_PASSES for k, v in moved.items()},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, shards, grads, prev
+    _free()
+    return out
+
+
+def _pp_parts(model, tokens):
+    """(microbatches, stage function, loss function) of (b): the
+    embedding of each row of ``tokens`` (outside the pipeline), the
+    layers run in order, the final LN + tied head + lm_loss."""
+    import torch
+
+    from byteps_tpu_torch.models import lm_loss
+    mb_tokens = tokens[:, None]  # [M, 1, seq]
+    pos = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    with torch.no_grad():
+        mbs = torch.stack([model.tok_embed(t) + model.pos_embed(pos)
+                           for t in mb_tokens])
+
+    def stage(layers, x):
+        for layer in layers:
+            x = layer(x)
+        return x
+
+    def head_loss(y, t):
+        return lm_loss(model.tok_embed.attend(model.final_ln(y)).float(), t)
+
+    return mbs, mb_tokens, stage, head_loss
+
+
+def _par_pp(group, rank, tmp):
+    """(b): layers [12 r, 12 r + 12) of GPT-2 medium on rank r, M = 4
+    microbatches of [1, PAR_SEQ] tokens, through pipeline_1f1b and
+    gpipe differentiated by autograd (the loss divided by the pair's
+    size), twice in turns. Writes both schedules' layer gradients to
+    TMP/pp<rank>.pt."""
+    import torch
+
+    from byteps_tpu_torch.parallel import gpipe, pipeline_1f1b
+    from byteps_tpu_torch.parallel._collectives import group_size
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    n = group_size(group)
+    model = _gpt2_medium()
+    per = len(model.layers) // n
+    layers = model.layers[rank * per:(rank + 1) * per]
+    mbs, mb_tokens, stage, head_loss = _pp_parts(model, _par_tokens("cuda"))
+    out, saved, ms = {}, {}, {"1f1b": [], "gpipe": []}
+    with _flash_shapes() as shapes:
+        # twice in turns: the first round pays one-time costs, the
+        # second's launches, peaks and gradients are read
+        for name in ("1f1b", "gpipe") * 2:
+            model.zero_grad(set_to_none=True)
+            _free()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            if name == "1f1b":
+                loss, grads = pipeline_1f1b(stage, head_loss, layers, mbs,
+                                            mb_tokens, group=group)
+            else:
+                y = gpipe(stage, layers, mbs, group=group)
+                loss = torch.stack([head_loss(y[i], mb_tokens[i])
+                                    for i in range(len(mbs))]).mean()
+                (loss / n).backward()
+                grads = [p.grad for p in layers.parameters()]
+                del y
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            out[name] = {"loss": loss.item(), "ms": ms[name],
+                         "launches": dict(fa.LAUNCHES),
+                         "peak_memory_gb":
+                             torch.cuda.max_memory_allocated() / 1e9}
+            saved[name] = [g.cpu() for g in grads]
+            del loss, grads
+    out["flash_shapes"] = sorted(shapes)
+    out["rel_l2_1f1b_gpipe"] = _rel_l2(saved["1f1b"], saved["gpipe"])
+    torch.save(saved, os.path.join(tmp, f"pp{rank}.pt"))
+    del model, layers, mbs, saved
+    _free()
+    return out
+
+
+def _par_zero(group, rank):
+    """(c): GPT-2 medium on rows [4r, 4r + 4) of ZERO_ROWS x PAR_SEQ,
+    ZERO_STEPS steps of make_train_step with AdamW over the pair, then
+    the same from the same weights with make_zero_train_step; the two
+    runs' losses and parameters compared here."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.parallel import (make_zero_train_step,
+                                           zero_init_sharded)
+    from byteps_tpu_torch.parallel import _collectives as C
+    from byteps_tpu_torch.parallel._collectives import group_size
+    from byteps_tpu_torch.training import make_train_step
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    half = ZERO_ROWS // group_size(group)
+    tokens = _par_tokens("cuda", ZERO_ROWS)[rank * half:(rank + 1) * half]
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)
+    bps.init(group=group)
+    out, dense = {}, None
+    try:
+        for name in ("dense", "zero"):
+            _free()
+            model = _gpt2_medium()
+            if name == "dense":
+                opt = adamw(model.parameters())
+                step = make_train_step(_loss_fn, opt)
+            else:
+                opt = zero_init_sharded(model, adamw)
+                step = make_zero_train_step(_loss_fn, opt)
+            losses, times = [], []
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            C.reset_bytes()
+            for _ in range(ZERO_STEPS):
+                t0 = time.perf_counter()
+                loss = step(model, tokens)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.item())
+            out[name] = {
+                "losses": losses, "step_ms": times,
+                "launches": dict(fa.LAUNCHES),
+                "staged_bytes_per_step": C.BYTES["staged"] / ZERO_STEPS,
+                "adamw_state_elements": sum(
+                    st[k].numel() for st in opt.state.values()
+                    for k in ("exp_avg", "exp_avg_sq")),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            params = [p.detach() for p in model.parameters()]
+            if dense is None:
+                # on the host, out of the ZeRO run's peak
+                dense = [p.cpu() for p in params]
+                out["n_params"] = sum(p.numel() for p in params)
+            else:
+                diff = [((z - d.to(z.device)).abs(), d.to(z.device).abs())
+                        for z, d in zip(params, dense)]
+                out["param_err_over_tolerance"] = max(
+                    (e / (1e-6 + 1e-5 * a)).max().item() for e, a in diff)
+                out["param_max_abs_diff"] = max(e.max().item()
+                                                for e, _ in diff)
+                out["params_equal"] = all(e.max().item() == 0
+                                          for e, _ in diff)
+                del diff
+            del model, opt, step, params
+    finally:
+        bps.shutdown()
+    del dense
+    _free()
+    return out
+
+
+def _moe_inputs(device):
+    """(x [2 x tokens, d] and the loss's probe of the same shape from
+    default_rng(0), gate_w, w1, w2 drawn with std 1/sqrt(fan in) from a
+    seed-0 generator), all f32. The tokens share a mean (a quarter of
+    one more standard normal row), as the hidden states of one batch do;
+    it skews the router, so that some experts overflow their capacity
+    (about 7 % of the tokens at top-1; isotropic tokens load every expert
+    within a few % of T/E and drop none)."""
+    import numpy as np
+    import torch
+    d, h, e, t = MOE["d"], MOE["h"], MOE["experts"], MOE["tokens"]
+    rng = np.random.default_rng(0)
+    x, probe = (rng.standard_normal((SP_RANKS * t, d)).astype(np.float32)
+                for _ in range(2))
+    x += 0.25 * rng.standard_normal(d).astype(np.float32)
+    x, probe = (torch.from_numpy(a).to(device) for a in (x, probe))
+    g = torch.Generator().manual_seed(0)
+    w = [torch.randn(s, generator=g).div_(math.sqrt(s[-2])).to(device)
+         for s in ((d, e), (e, d, h), (e, h, d))]
+    return x, probe, w
+
+
+def _moe_run(x, probe, weights, top_k, group=None):
+    """One forward and backward of moe_ffn (loss sum(y * probe) + aux):
+    (y, aux, the weights' gradients, the tokens (top-1) or choices
+    (top-2) dropped by the capacity). Over a group the count is the EP
+    path's own: of the [E, C, d] expert outputs that its second
+    all-to-all brings home, an empty slot is a zero row (gelu(0) = 0) and
+    a kept one is not. The dense layer's is moe_dispatch's."""
+    import torch
+
+    from byteps_tpu_torch.parallel import moe
+    ws = [w.detach().clone().requires_grad_() for w in weights]
+    cf = MOE_CF[top_k]
+    a2a, homes = moe.all_to_all, []
+
+    def kept_a2a(*args, **kw):
+        out = a2a(*args, **kw)
+        homes.append(out.detach())
+        return out
+    moe.all_to_all = kept_a2a
+    try:
+        y, aux = moe.moe_ffn(x, *ws, capacity_factor=cf, group=group,
+                             top_k=top_k)
+    finally:
+        moe.all_to_all = a2a
+    ((y * probe).sum() + aux).backward()
+    t = x.shape[0]
+    with torch.no_grad():
+        if group is None:
+            dispatch_fn = (moe.moe_dispatch if top_k == 1
+                           else moe.moe_dispatch_top2)
+            kept = dispatch_fn(x @ weights[0],
+                               max(1, int(cf * t / MOE["experts"])))[0].sum()
+        else:
+            kept = (homes[-1] != 0).any(-1).sum()
+    return y.detach(), aux.item(), [w.grad for w in ws], top_k * t - int(kept)
+
+
+def _par_moe(group, rank, tmp):
+    """(d): the MoE layer over the pair (``group``: ep = 2), this rank's
+    MOE["tokens"] tokens, top-1 and top-2, forward and backward. Writes
+    the outputs and gradients to TMP/moe<rank>.pt."""
+    import torch
+
+    from byteps_tpu_torch.parallel import _collectives as C
+    x, probe, weights = _moe_inputs("cuda")
+    t = MOE["tokens"]
+    rows = slice(rank * t, (rank + 1) * t)
+    out, saved = {}, {}
+    for k in (1, 2):
+        C.reset_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux, grads, dropped = _moe_run(x[rows], probe[rows], weights, k,
+                                          group)
+        torch.cuda.synchronize()
+        out[f"top{k}"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                          "aux": aux, "dropped": dropped,
+                          "all_to_all_bytes": C.BYTES["all_to_all"],
+                          "staged_bytes": C.BYTES["staged"]}
+        saved[k] = {"y": y.cpu(), "grads": [g.cpu() for g in grads]}
+    torch.save(saved, os.path.join(tmp, f"moe{rank}.pt"))
+    del x, probe, weights, saved
+    _free()
+    return out
+
+
+def par_worker(out_dir, rank, port):
+    """One of phase 10's two processes (``python chip_smoke.py
+    --par-worker DIR --rank R --port P``), on cuda:0 in a gloo group as
+    phase 9's: (a) TP, (b) PP, (c) ZeRO, (d) EP and (e) the dry run;
+    writes DIR/rank<r>.json and the gradients that phase 10's gates read
+    (DIR/tp<r>.pt, pp<r>.pt, moe<r>.pt)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from byteps_tpu_torch.dryrun import dryrun_multichip
+    from byteps_tpu_torch.parallel import Mesh
+
+    torch.cuda.set_device(0)
+    os.environ["BYTEPS_PS_MODE"] = "collective"
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=SP_RANKS,
+        timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        pair = Mesh((SP_RANKS,), ("pair",)).group("pair")
+        t0 = time.perf_counter()
+        rec = {}
+        for key, run in (("a", lambda: _par_tp(pair, rank, out_dir)),
+                         ("b", lambda: _par_pp(pair, rank, out_dir)),
+                         ("c", lambda: _par_zero(pair, rank)),
+                         ("d", lambda: _par_moe(pair, rank, out_dir)),
+                         ("e", lambda: dryrun_multichip(SP_RANKS,
+                                                        device="cuda"))):
+            rec[key] = run()
+            log(f"par worker {rank}: ({key}) done at "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _par_references():
+    """The one-process runs phase 10's gates hold the pair to, on the
+    card, kept on the host: (a) the dense GPT-2 medium's loss and
+    gradients on (a)'s tokens; (b) the same 24 layers microbatch by
+    microbatch, each microbatch's loss / M backward, the gradients
+    accumulated in f32; (d) the dense MoE layer on each rank's tokens."""
+    import torch
+
+    from byteps_tpu_torch.models import lm_loss
+    ref = {}
+    model = _gpt2_medium()
+    tokens = _par_tokens("cuda")
+    loss = lm_loss(model(tokens), tokens)
+    loss.backward()
+    ref["tp_loss"] = loss.item()
+    ref["tp_grads"] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    mbs, mb_tokens, stage, head_loss = _pp_parts(model, tokens)
+    losses = []
+    for i in range(len(mbs)):
+        loss = head_loss(stage(model.layers, mbs[i]), mb_tokens[i]) / len(mbs)
+        loss.backward()
+        losses.append(loss.item())
+    ref["pp_loss"] = sum(losses)
+    ref["pp_grads"] = [p.grad.cpu() for p in model.layers.parameters()]
+    del model, loss, mbs
+    _free()
+    x, probe, weights = _moe_inputs("cuda")
+    t = MOE["tokens"]
+    for k in (1, 2):
+        runs = [_moe_run(x[r * t:(r + 1) * t], probe[r * t:(r + 1) * t],
+                         weights, k) for r in range(SP_RANKS)]
+        ref[f"moe{k}"] = {
+            "y": [r[0].cpu() for r in runs],
+            "dropped": [r[3] for r in runs],
+            "grads": [sum(r[2][i] for r in runs).cpu() for i in range(3)]}
+        del runs
+    del x, probe, weights
+    _free()
+    return ref
+
+
+# (a)'s shards: the dense parameter each slices, and the dim of the
+# [d, heads x head_dim] (or [heads x head_dim, d]) matrix it slices
+TP_SHARDED = {"query": ("attention.query.kernel", 1),
+              "key": ("attention.key.kernel", 1),
+              "value": ("attention.value.kernel", 1),
+              "out": ("attention.out.kernel", 0),
+              "mlp_in": ("mlp_in.kernel", 1),
+              "mlp_in_bias": ("mlp_in.bias", 0),
+              "mlp_out": ("mlp_out.kernel", 0)}
+
+
+def _tp_gathered(ref, tmp):
+    """(a)'s gathered gradients beside the dense ones: the six kernels'
+    and mlp_in's bias shards concatenated in rank order, the replicated
+    parameters' summed over the pair. Returns (got, want) lists."""
+    import torch
+    runs = [torch.load(os.path.join(tmp, f"tp{r}.pt"))
+            for r in range(SP_RANKS)]
+    want, got, names = ref["tp_grads"], [], []
+    for i in range(len(runs[0]["shards"])):
+        for k, (name, dim) in TP_SHARDED.items():
+            whole = torch.cat([r["shards"][i][k] for r in runs], dim=dim)
+            names.append(f"layers.{i}.{name}")
+            got.append(whole.reshape(want[names[-1]].shape))
+    for name in runs[0]["replicated"]:
+        got.append(sum(r["replicated"][name] for r in runs))
+        names.append(name)
+    return got, [want[n] for n in names]
+
+
+def par_phase():
+    """Phase 10. The one-process references in this process
+    (``_par_references``), freed from the card, then two processes on
+    the card in a gloo group (``par_worker``; the port stages their
+    collectives through host memory): (a) GPT-2 medium with TP = 2, (b)
+    its 24 layers as two pipeline stages, 1F1B and GPipe, (c) ZeRO
+    against make_train_step, (d) the Switch-Base-8 MoE layer with EP =
+    2, (e) the dry run. Gates, each written before the run that first
+    read it:
+    - (a) on each rank: every pass's loss within TP_LOSS_REL of the
+      dense loss (relative), the gathered shard gradients and the
+      replicated parameters' gradients summed over the pair within
+      RING_GRAD_REL_L2 of the dense gradients (relative L2); #1, #3 and
+      #4 launched 24
+      times a pass, #2 never in training and 24 times (alone) in the
+      evaluation forward; every flash call at [4, PAR_SEQ, 8, 64];
+    - (b) on each rank: both schedules' mean loss equal to the
+      microbatch-wise run's to rtol 1e-5; each schedule's gradients of
+      the 24 layers (the two ranks' 12 each) within PP_GRAD_REL_L2 of
+      it, and 1F1B's within PP_GRAD_REL_L2 of GPipe's; 1F1B launches
+      #2, #1, #3 and #4 12 x M times each, GPipe #1, #3 and #4 12 x
+      (M + 1) times each (the stage runs on every tick) and #2 never;
+      every flash call at [1, PAR_SEQ, 16, 64];
+    - (c) on each rank: ZeRO's losses and parameters equal to
+      make_train_step's to rtol 1e-5, atol 1e-6 (the JAX test's); its
+      AdamW state 2 x ceil(n / 2) elements against 2 n; 24 launches of
+      #1, #3, #4 a step on both paths;
+    - (d): each rank's EP output within MOE_OUT_REL of the dense layer's
+      on its tokens, the same tokens dropped (counted from the EP
+      path's own all-to-all, ``_moe_run``), the weights' gradients
+      summed over the pair within MOE_GRAD_REL_L2 of the two dense runs'
+      sum, top-1 and top-2;
+    - (e): dryrun_multichip(2) completes, finite, on both ranks."""
+    import shutil
+
+    import torch
+
+    ref = _par_references()
+    held_gb = {"allocated": torch.cuda.memory_allocated() / 1e9,
+               "reserved": torch.cuda.memory_reserved() / 1e9}
+    log("before phase 10's processes this one holds (GB):",
+        json.dumps(held_gb))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        recs = _run_pair("--par-worker", tmp, PAR_TIMEOUT_S)
+        gates = _par_gates(ref, recs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"references": {"tp_loss": ref["tp_loss"], "pp_loss":
+                          ref["pp_loss"],
+                          "moe_dropped": {k: ref[f"moe{k}"]["dropped"]
+                                          for k in (1, 2)}},
+           "main_process_held_gb": held_gb, "gates": gates, "ranks": recs}
+    log("phase 10 (TP, PP, ZeRO, EP, dry run):", json.dumps(out))
+    return out
+
+
+def _par_gates(ref, recs, tmp):
+    """Phase 10's gates (``par_phase``); returns what they read."""
+    import torch
+
+    m, layers = PAR_ROWS, PAR_LAYERS
+    per = layers // SP_RANKS
+    got, want = _tp_gathered(ref, tmp)
+    out = {"tp_grad_rel_l2": _rel_l2(got, want)}
+    del got, want
+    pp = [torch.load(os.path.join(tmp, f"pp{r}.pt")) for r in range(SP_RANKS)]
+    for name in ("1f1b", "gpipe"):
+        out[f"pp_{name}_grad_rel_l2"] = _rel_l2(
+            [g for r in pp for g in r[name]], ref["pp_grads"])
+    del pp
+    moe = [torch.load(os.path.join(tmp, f"moe{r}.pt"))
+           for r in range(SP_RANKS)]
+    for k in (1, 2):
+        dense = ref[f"moe{k}"]
+        out[f"moe{k}"] = {
+            "out_rel_l2": [_rel_l2([moe[r][k]["y"]], [dense["y"][r]])
+                           for r in range(SP_RANKS)],
+            "out_max_err_over_max": [
+                ((moe[r][k]["y"] - dense["y"][r]).abs().max()
+                 / dense["y"][r].abs().max()).item()
+                for r in range(SP_RANKS)],
+            "grad_rel_l2": _rel_l2(
+                [sum(moe[r][k]["grads"][i] for r in range(SP_RANKS))
+                 for i in range(3)], dense["grads"])}
+    del moe
+    log("phase 10 gates read:", json.dumps(out))
+
+    fails = []
+    if not out["tp_grad_rel_l2"] <= RING_GRAD_REL_L2:
+        fails.append(f"(a) gradients {out['tp_grad_rel_l2']}")
+    for name in ("1f1b", "gpipe"):
+        if not out[f"pp_{name}_grad_rel_l2"] <= PP_GRAD_REL_L2:
+            fails.append(f"(b) {name} gradients "
+                         f"{out[f'pp_{name}_grad_rel_l2']}")
+    for k in (1, 2):
+        o = out[f"moe{k}"]
+        if not (max(o["out_rel_l2"]) <= MOE_OUT_REL
+                and max(o["out_max_err_over_max"]) <= MOE_OUT_REL
+                and o["grad_rel_l2"] <= MOE_GRAD_REL_L2):
+            fails.append(f"(d) top-{k}: {o}")
+    for rank, rec in enumerate(recs):
+        a, b, c, d, e = (rec[k] for k in "abcde")
+        for loss in a["losses"] + [a["eval_loss"]]:
+            if not abs(loss - ref["tp_loss"]) <= TP_LOSS_REL * abs(
+                    ref["tp_loss"]):
+                fails.append(f"(a) rank {rank} loss {loss} vs dense "
+                             f"{ref['tp_loss']}")
+        want = {"fwd_lse": layers * TP_PASSES, "fwd": 0,
+                "bwd_dq": layers * TP_PASSES, "bwd_dkv": layers * TP_PASSES}
+        if a["launches"] != want or a["eval_launches"] != {
+                "fwd_lse": 0, "fwd": layers, "bwd_dq": 0, "bwd_dkv": 0}:
+            fails.append(f"(a) rank {rank} launches {a['launches']}, "
+                         f"evaluation {a['eval_launches']}")
+        heads, head_dim = a["heads"]
+        if a["flash_shapes"] != [[PAR_ROWS, PAR_SEQ, heads // SP_RANKS,
+                                  head_dim]]:
+            fails.append(f"(a) rank {rank} flash shapes {a['flash_shapes']}")
+        for name, want in (
+                ("1f1b", {k: per * m for k in ("fwd_lse", "fwd", "bwd_dq",
+                                               "bwd_dkv")}),
+                ("gpipe", {"fwd_lse": per * (m + SP_RANKS - 1), "fwd": 0,
+                           "bwd_dq": per * (m + SP_RANKS - 1),
+                           "bwd_dkv": per * (m + SP_RANKS - 1)})):
+            if b[name]["launches"] != want:
+                fails.append(f"(b) rank {rank} {name} launches "
+                             f"{b[name]['launches']}, expected {want}")
+            if not abs(b[name]["loss"] - ref["pp_loss"]) <= 1e-5 * abs(
+                    ref["pp_loss"]):
+                fails.append(f"(b) rank {rank} {name} loss "
+                             f"{b[name]['loss']} vs {ref['pp_loss']}")
+        if not b["rel_l2_1f1b_gpipe"] <= PP_GRAD_REL_L2:
+            fails.append(f"(b) rank {rank} 1F1B vs GPipe "
+                         f"{b['rel_l2_1f1b_gpipe']}")
+        if b["flash_shapes"] != [[1, PAR_SEQ, heads, head_dim]]:
+            fails.append(f"(b) rank {rank} flash shapes {b['flash_shapes']}")
+        zl, dl = c["zero"]["losses"], c["dense"]["losses"]
+        if not (all(abs(z - d_) <= 1e-6 + 1e-5 * abs(d_)
+                    for z, d_ in zip(zl, dl))
+                and c["param_err_over_tolerance"] <= 1.0):
+            fails.append(f"(c) rank {rank}: losses {zl} vs {dl}, "
+                         f"parameters {c['param_err_over_tolerance']} of "
+                         f"the tolerance")
+        n = c["n_params"]
+        if (c["zero"]["adamw_state_elements"] != 2 * -(-n // SP_RANKS)
+                or c["dense"]["adamw_state_elements"] != 2 * n):
+            fails.append(f"(c) rank {rank} AdamW state "
+                         f"{c['zero']['adamw_state_elements']} / "
+                         f"{c['dense']['adamw_state_elements']} of {n}")
+        for name in ("dense", "zero"):
+            _check_launches(f"(c) rank {rank} {name}", c[name]["launches"],
+                            layers, ZERO_STEPS)
+        for k in (1, 2):
+            if d[f"top{k}"]["dropped"] != ref[f"moe{k}"]["dropped"][rank]:
+                fails.append(f"(d) rank {rank} top-{k} dropped "
+                             f"{d[f'top{k}']['dropped']} vs dense "
+                             f"{ref[f'moe{k}']['dropped'][rank]}")
+        if not all(math.isfinite(v) for v in e.values()):
+            fails.append(f"(e) rank {rank}: {e}")
+    if fails:
+        raise AssertionError("phase 10 failed:\n" + "\n".join(fails))
+    return out
+
+
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
@@ -2407,6 +3108,8 @@ def main() -> int:
     # two processes need 27 GB each, and after phases 4-8 this process
     # kept enough that they ran out of memory
     sp = sp_phase(coll_losses)
+    # phase 10 too, before phases 4-8 leave memory held in this process
+    par = par_phase()
     alone, paths = ps_phase(coll_losses)
     plain = paths.pop("ps")
     images = resnet_phase()
@@ -2450,6 +3153,7 @@ def main() -> int:
         **llama,
         "launched_fleets": launched,
         "sequence_parallel": sp,
+        "parallel": par,
         "memory_held_after_phase8_gb": held_gb,
         "sdpa_fwd_bwd_ms": {case: timing[case]["sdpa_fwd_bwd_ms"]
                             for case in TIMED},
@@ -2480,7 +3184,15 @@ def main() -> int:
                "llama1b_sp2": {**sp["ranks"][0]["b"]["launches"],
                                "fwd": sp["ranks"][0]["b"]["eval_launches"][
                                    "fwd"]},
-               "gpt2_int8_rank0": sp["ranks"][0]["d"]["int8"]["launches"]}
+               "gpt2_int8_rank0": sp["ranks"][0]["d"]["int8"]["launches"],
+               # rank 0 of phase 10's pair: (a) two TP passes, and for fwd
+               # its evaluation forward; (b) each schedule; (c) ZeRO's steps
+               "gpt2m_tp2_rank0": {
+                   **par["ranks"][0]["a"]["launches"],
+                   "fwd": par["ranks"][0]["a"]["eval_launches"]["fwd"]},
+               "gpt2m_1f1b_rank0": par["ranks"][0]["b"]["1f1b"]["launches"],
+               "gpt2m_gpipe_rank0": par["ranks"][0]["b"]["gpipe"]["launches"],
+               "gpt2m_zero_rank0": par["ranks"][0]["c"]["zero"]["launches"]}
     kernels = []
     for name, (fn, replaces) in REPLACES.items():
         kernels.append({
@@ -2507,17 +3219,21 @@ def _worker_main(argv) -> int:
     p.add_argument("--preempt-after", type=int, default=0)
     p.add_argument("--trace", action="store_true")
     p.add_argument("--sp-worker", metavar="DIR")
+    p.add_argument("--par-worker", metavar="DIR")
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--port", type=int, default=0)
     args = p.parse_args(argv)
     sys.path.insert(0, HERE)
     if args.sp_worker:
         return sp_worker(args.sp_worker, args.rank, args.port)
+    if args.par_worker:
+        return par_worker(args.par_worker, args.rank, args.port)
     return launched_worker(args.launched_worker, args.preempt_after,
                            args.trace)
 
 
 if __name__ == "__main__":
-    if {"--launched-worker", "--sp-worker"} & set(sys.argv[1:]):
+    if {"--launched-worker", "--sp-worker", "--par-worker"} & set(
+            sys.argv[1:]):
         sys.exit(_worker_main(sys.argv[1:]))
     sys.exit(main())

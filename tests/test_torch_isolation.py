@@ -43,6 +43,11 @@ def test_port_imports_no_jax_and_nothing_of_byteps_tpu():
                 "byteps_tpu_torch.parallel.ulysses",
                 "byteps_tpu_torch.parallel.ring_attention",
                 "byteps_tpu_torch.parallel._collectives",
+                "byteps_tpu_torch.parallel.tensor_parallel",
+                "byteps_tpu_torch.parallel.pipeline",
+                "byteps_tpu_torch.parallel.moe",
+                "byteps_tpu_torch.parallel.zero",
+                "byteps_tpu_torch.dryrun",
                 "byteps_tpu_torch.compression",
                 "byteps_tpu_torch.monitor.http",
                 "byteps_tpu_torch.monitor.timeline",

@@ -761,3 +761,38 @@ def test_hook_pushes_need_a_step_within_the_credit(monkeypatch, credit,
     else:
         with pytest.raises(ValueError, match="BYTEPS_SCHEDULING_CREDIT"):
             bps.DistributedOptimizer(opt)
+
+
+@pytest.mark.parametrize("path", ["distributed_optimizer", "overlapped"])
+def test_dropped_hooks_free_the_model(monkeypatch, path):
+    """The hooks a ``_TapState`` registers live on the parameters, where
+    the garbage collector does not look; when they held the state, a
+    dropped PS-mode DistributedOptimizer or overlapped step kept every
+    parameter and gradient of its model alive for the life of the
+    process (4.0 GB of the card after chip_smoke.py's phases 4-8). Once
+    the optimizer or step and the model are dropped, the parameters go,
+    and so do the hooks and the stager thread."""
+    import gc
+    import threading
+    import weakref
+
+    init_loopback(monkeypatch, LoopbackClient())
+    model = torch.nn.Linear(8, 8)
+    x = torch.ones(2, 8)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    if path == "distributed_optimizer":
+        holder = bps.DistributedOptimizer(opt)
+        model(x).sum().backward()
+        holder.step()
+    else:
+        holder = make_overlapped_train_step(lambda m, b: m(b).sum(), opt)
+        holder(model, x)
+    stagers = {t for t in threading.enumerate()
+               if t.name.startswith("bps_stager_")}
+    weight = weakref.ref(model.weight)
+    del model, opt, holder
+    gc.collect()
+    assert weight() is None
+    for t in stagers:
+        t.join(timeout=10)
+        assert not t.is_alive()
