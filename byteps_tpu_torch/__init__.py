@@ -12,9 +12,12 @@ One process drives one GPU. The local process group (``torch.distributed``,
 NCCL on the card, gloo on the CPU) plays the part of the JAX mesh's ``ici``
 axis; in collective mode a mesh's ``dcn`` group may play its ``dcn`` axis,
 and in PS mode the cross-host level goes through the C++ KV client to the
-CPU parameter servers (``byteps_tpu_torch.ps``). Tensors are per-process
-values (the Horovod contract), not stacked replicas. Entry points run on
-the card unless the caller passes ``device="cpu"``.
+CPU parameter servers (``byteps_tpu_torch.ps``). In PS mode one client
+serves a host: local rank 0 holds it, and a local group of k > 1 feeds it
+through host staging the k processes share (``local_stage``), as the
+reference's root process does. Tensors are per-process values (the
+Horovod contract), not stacked replicas. Entry points run on the card
+unless the caller passes ``device="cpu"``.
 
 The package imports torch and numpy, and nothing of JAX or of byteps_tpu:
 the host runtime it needs (config, partition, the C++ core, server,
@@ -52,8 +55,13 @@ class _State:
     registry: TensorRegistry
     device: torch.device
     group: Optional[dist.ProcessGroup]  # the local level; None = 1 process
-    ps_client: Any = None  # C++ KV client (PS mode)
+    ps: bool = False  # PS mode: the servers are the cross-host level
+    ps_client: Any = None  # C++ KV client: PS mode, local rank 0 only
     dcn_group: Optional[dist.ProcessGroup] = None  # collective mode's dcn
+    # PS mode: this host's index among the fleet's hosts and their number
+    # (the root client's worker_rank() and num_workers() at init)
+    host_rank: int = 0
+    num_hosts: int = 1
 
 
 _state: Optional[_State] = None
@@ -74,7 +82,17 @@ def init(config: Optional[Config] = None, *, device=None,
     ``ici`` axis is the local level and, in collective mode, its ``dcn``
     axis the cross-host level, as the JAX mesh's axes are; it becomes the
     global mesh. In PS mode the servers are the cross-host level, so a
-    mesh whose ``dcn`` axis has more than one process is refused there."""
+    mesh whose ``dcn`` axis has more than one process is refused there.
+
+    PS mode with a local group of k processes (one a GPU; the launcher's
+    ``--workers-per-host k`` sets ``BYTEPS_LOCAL_RANK`` and
+    ``BYTEPS_LOCAL_SIZE``): only local rank 0 starts the core's client,
+    one a host, and ``DMLC_NUM_WORKER`` counts hosts, as in the JAX
+    package and the reference. The group's ranks must each be their
+    ``BYTEPS_LOCAL_RANK`` and agree on ``BYTEPS_LOCAL_SIZE`` = k. The
+    PS-mode steps, ``push_pull`` and ``broadcast_parameters`` then
+    reduce over the group and send one gradient a host through the root
+    (``ps.local_push_pull``, ``overlap._TapState``)."""
     global _state
     from byteps_tpu_torch import ps as _ps
     # Settle a stale async op against the OLD client before re-init.
@@ -91,24 +109,74 @@ def init(config: Optional[Config] = None, *, device=None,
             group = dist.group.WORLD
         registry = TensorRegistry(cfg.partition_bytes,
                                   max(1, cfg.num_server))
-        ps_client = None
+        ps_client, hosts = None, (0, 1)
         if cfg.use_ps:
             if _h.group_size(dcn_group) > 1:
                 raise ValueError(
                     "PS mode: the servers are the cross-host level; a "
                     "mesh's dcn axis is collective mode's")
-            if group is not None and dist.get_world_size(group) > 1:
-                raise NotImplementedError(
-                    f"PS mode with {dist.get_world_size(group)} processes "
-                    "in the local group is not ported yet (ROADMAP: "
-                    "multi-GPU-per-host PS, a local group larger than 1 "
-                    "feeding the PS leg); run one worker per GPU with no "
-                    "local group")
-            from byteps_tpu_torch.core import ffi as _ffi
-            ps_client = _ffi.Worker.start(cfg)
+            if _h.group_size(group) > 1:
+                _check_local_group(cfg, group, dev)
+            ps_client, hosts = _start_root(cfg, group, dev)
         _ps.reset_declare_cache()
         set_global_mesh(mesh)
-        _state = _State(cfg, registry, dev, group, ps_client, dcn_group)
+        _state = _State(cfg, registry, dev, group, cfg.use_ps, ps_client,
+                        dcn_group, *hosts)
+
+
+def _group_tensor(vals, group, dev) -> torch.Tensor:
+    """``vals`` as int64 on the device ``group``'s backend carries."""
+    on = dev if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    return torch.tensor(vals, dtype=torch.int64, device=on)
+
+
+def _check_local_group(cfg: Config, group, dev) -> None:
+    """Refuse a local group whose ranks are not their BYTEPS_LOCAL_RANK
+    or disagree on BYTEPS_LOCAL_SIZE, or whose size is not that value."""
+    k = _h.group_size(group)
+    mine = _group_tensor([cfg.local_rank, cfg.local_size], group, dev)
+    every = mine.new_empty(2 * k)
+    _h.all_gather(every, mine, group)
+    seen = every.view(k, 2).tolist()
+    if seen != [[r, k] for r in range(k)]:
+        raise ValueError(
+            f"PS mode with a local group of {k} processes needs each "
+            "rank r of the group to run with BYTEPS_LOCAL_RANK=r and "
+            f"BYTEPS_LOCAL_SIZE={k} (the launcher's --workers-per-host "
+            f"{k}); the group's (BYTEPS_LOCAL_RANK, BYTEPS_LOCAL_SIZE) "
+            f"are {[tuple(x) for x in seen]}")
+
+
+def _start_root(cfg: Config, group, dev):
+    """Local rank 0 starts the core's client. Returns (the client or
+    None, (host rank, number of hosts)), the latter read by local rank 0
+    and broadcast over a local group of k > 1; with one process, (0, 1),
+    as ``rank()`` then reads the client itself."""
+    from byteps_tpu_torch.core import ffi as _ffi
+    k = _h.group_size(group)
+    if k == 1 and cfg.local_size > 1:
+        raise ValueError(
+            f"BYTEPS_LOCAL_SIZE={cfg.local_size} but this process has no "
+            "local group: initialise torch.distributed over the host's "
+            "processes (or pass init(group=...)) so that one of them "
+            "holds the host's PS client")
+    if k == 1:
+        return _ffi.Worker.start(cfg), (0, 1)
+    client, hosts, err = None, [-1, -1], None
+    if _h.group_rank(group) == 0:
+        try:
+            client = _ffi.Worker.start(cfg)
+            hosts = [client.worker_rank(), client.num_workers()]
+        except Exception as e:  # noqa: BLE001 (the group hears of it)
+            err = e
+    t = _group_tensor(hosts, group, dev)
+    _h.broadcast_(t, dist.get_global_rank(group, 0), group)
+    if err is not None:
+        raise err
+    if t[0] < 0:
+        raise RuntimeError("local rank 0 of this host failed to start the "
+                           "PS client (see its error)")
+    return client, tuple(t.tolist())
 
 
 def shutdown() -> None:
@@ -141,22 +209,39 @@ def device() -> torch.device:
     return _st().device
 
 
-def rank() -> int:
-    """This worker's index in [0, size()). PS mode: the fleet-wide worker
-    rank (DMLC_WORKER_ID order); otherwise the ``torch.distributed`` rank
-    (0 without a process group)."""
+def _hosts():
+    """(this host's index, number of hosts) in PS mode: the client's live
+    reading where this process holds it, else what the root read at
+    init."""
     st = _st()
     if st.ps_client is not None:
-        return st.ps_client.worker_rank()
+        return st.ps_client.worker_rank(), st.ps_client.num_workers()
+    return st.host_rank, st.num_hosts
+
+
+def rank() -> int:
+    """This process's index in [0, size()). PS mode: ``host_rank *
+    local_size() + local_rank()``, the host's rank (DMLC_WORKER_ID order)
+    read by its root's client; otherwise the ``torch.distributed`` rank
+    (0 without a process group).
+
+    One process drives one GPU here, so the reference's Horovod contract
+    holds: rank and size count GPUs. The JAX ``rank()`` counts controller
+    processes instead, because one JAX process drives every chip of its
+    host."""
+    st = _st()
+    if st.ps:
+        return _hosts()[0] * local_size() + _h.group_rank(st.group)
     return dist.get_rank() if dist.is_initialized() else 0
 
 
 def size() -> int:
-    """Number of workers: the PS fleet's in PS mode, else the
-    ``torch.distributed`` world size (1 without a process group)."""
+    """Number of processes: in PS mode the fleet's hosts times
+    ``local_size()``, else the ``torch.distributed`` world size (1
+    without a process group)."""
     st = _st()
-    if st.ps_client is not None:
-        return st.ps_client.num_workers()
+    if st.ps:
+        return _hosts()[1] * local_size()
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
@@ -198,15 +283,26 @@ def push_pull(tensors, average: bool = True, name: Optional[str] = None,
     the result then crosses the host boundary through the C++ KV client,
     so the reduction is global across worker processes. ``name`` keys the PS
     registry; unnamed calls share a shape-keyed name and must be issued in
-    the same order on every worker.
+    the same order on every worker. PS mode with a local group of k > 1:
+    the group reduce-scatters, each rank's slices go through the host's
+    root, and the group all-gathers (``ps.local_push_pull``); the int8
+    transports are collective mode's there.
     """
     st = _st()
     leaves, unflatten = _h.tree_flatten(tensors)
     if not leaves:
         return tensors
+    if st.ps and _h.group_size(st.group) > 1:
+        from byteps_tpu_torch import ps as _ps
+        if compression.name in QUANTIZED:
+            raise ValueError(
+                f"Compression {compression.name!r} is collective mode's "
+                "transport; in PS mode use Compression.bf16/fp16")
+        return unflatten(_ps.local_push_pull(
+            leaves, average, name or "push_pull", compression))
     dtypes = [t.dtype for t in leaves]
     wire = _group_reduce(leaves, average, compression)
-    if st.ps_client is not None:
+    if st.ps:
         from byteps_tpu_torch import ps as _ps
         wire = _ps.ps_push_pull(wire, average=average,
                                 prefix=name or "push_pull")
@@ -230,7 +326,7 @@ def push_pull_async(tensors, average: bool = True,
     fleet-consistent order against synchronous calls; ``synchronize``
     joins it. Collective mode: the collectives run before this returns."""
     st = _st()
-    if st.ps_client is not None:
+    if st.ps:
         from byteps_tpu_torch import ps as _ps
         return Handle(_ps.submit_ordered(push_pull, tensors, average, name,
                                          compression))
@@ -267,7 +363,7 @@ def push_pull_async_inplace_(tensor: torch.Tensor, average: bool = True,
     ``tensor``; ``synchronize`` of the handle waits for that and returns
     ``tensor`` (reference: byteps.torch push_pull_async_inplace_)."""
     st = _st()
-    if st.ps_client is not None:
+    if st.ps:
         from byteps_tpu_torch import ps as _ps
         return Handle(_ps.submit_ordered(_write_back, tensor, average, name))
     return Handle(_write_back(tensor, average, name))
@@ -301,19 +397,23 @@ def broadcast_parameters(params, root_rank: int = 0,
     """Overwrite ``params`` (a tensor, list or dict of tensors, such as
     ``model.state_dict()``) in place with ``root_rank``'s values and return
     it (reference: broadcast_parameters). Over the local group this is a
-    ``torch.distributed`` broadcast; in PS mode the tensors then round-trip through
-    the servers so every worker holds the root's values. ``name`` keys
-    the PS registry for that leg."""
+    ``torch.distributed`` broadcast. In PS mode it takes three stages: the
+    local broadcast from ``root_rank``'s local rank, the local roots'
+    broadcast through the servers from ``root_rank``'s host, and a local
+    broadcast from each host's root. ``name`` keys the PS registry for
+    that leg."""
     st = _st()
     leaves, _ = _h.tree_flatten(params)
     if not leaves:
         return params
-    synced = _h.tree_broadcast(list(leaves), root=root_rank,
-                               ici_group=st.group, dcn_group=st.dcn_group)
-    if st.ps_client is not None:
+    if st.ps:
         from byteps_tpu_torch import ps as _ps
-        synced = _ps.ps_broadcast(synced, root_rank=root_rank,
-                                  prefix=name or "param")
+        synced = _ps.local_broadcast(list(leaves), root_rank,
+                                     name or "param")
+    else:
+        synced = _h.tree_broadcast(list(leaves), root=root_rank,
+                                   ici_group=st.group,
+                                   dcn_group=st.dcn_group)
     with torch.no_grad():
         for dst, src in zip(leaves, synced):
             if dst is not src:
@@ -377,15 +477,15 @@ class DistributedOptimizer:
         self.backward_passes_per_step = backward_passes_per_step
         self._taps = None
         self.timings: dict = {}
-        client = _st().ps_client
-        if client is not None:
+        st = _st()
+        if st.ps:
             if compression.name not in self._WIRES:
                 raise ValueError(
                     f"Compression {compression.name!r} has no PS-mode "
                     f"wire; use one of {sorted(self._WIRES)}")
             from byteps_tpu_torch.overlap import _TapState
             self._taps = _TapState(
-                client, [p for g in optimizer.param_groups
+                st.ps_client, [p for g in optimizer.param_groups
                          for p in g["params"]], "grad", average, None,
                 wire_dtype=self._WIRES[compression.name],
                 backward_passes_per_step=backward_passes_per_step,

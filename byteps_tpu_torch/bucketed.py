@@ -22,7 +22,11 @@ a pipeline instead of the tree crossing each leg whole:
   landed (``sweep``).
 
 Either way the sums land in ``.grad`` on the copy stream, and the
-optimizer steps once the compute stream has waited for the uploads.
+optimizer steps once the compute stream has waited for the uploads. With
+a local group of k > 1 processes a bucket is also the unit of the local
+reduce-scatter, which ``_TapState``'s stager issues bucket by bucket in
+backward order (``overlap.py``); ``multi_program=False`` then stages
+every bucket after backward through the same stager.
 ``donate`` has no counterpart: PyTorch updates the parameters in place,
 as ``training.py`` does.
 """
@@ -158,8 +162,9 @@ def make_bucketed_overlap_step(
     the DCN leg. ``step.timings`` holds the last step's host clock
     readings, as ``make_overlapped_train_step``'s do.
     """
-    client = bps._st().ps_client
-    if client is None:
+    st = bps._st()
+    client = st.ps_client
+    if not st.ps:
         raise RuntimeError(
             "make_bucketed_overlap_step needs PS mode (init with "
             "DMLC_NUM_SERVER>0 / BYTEPS_PS_MODE=ps)")
@@ -182,7 +187,7 @@ def make_bucketed_overlap_step(
     state = _TapState(client, params, prefix, average, compression_config,
                       wire_dtype=wire_dtype, buckets=buckets, sum_wire=True,
                       hooks=multi_program)
-    if multi_program:
+    if multi_program or state.k > 1:
         return _hooked_step(loss_fn, optimizer, state)
 
     def step(model_or_params, batch) -> torch.Tensor:
@@ -201,12 +206,12 @@ def make_bucketed_overlap_step(
             for b in reversed(range(len(buckets))):  # backward order
                 idx = buckets[b]
                 state.to_host([state.wire(i) for i in idx])
-                pipe.push_bucket(b, [state.tids[i] for i in idx],
-                                 [state.push_bufs[i] for i in idx], idx,
-                                 average)
+                pipe.push_bucket(b, [state.tids[(i, 0)] for i in idx],
+                                 [state.push_bufs[(i, 0)] for i in idx],
+                                 idx, average)
                 now = time.perf_counter()
                 state.timeline["pushes"] += [
-                    (now, state.push_bufs[i].nbytes) for i in idx]
+                    (now, state.push_bufs[(i, 0)].nbytes) for i in idx]
                 pipe.sweep()
             pipe.finish()
         except BaseException:

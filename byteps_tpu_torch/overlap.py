@@ -35,14 +35,32 @@ declare. After ``backward()`` returns the step waits the handles in model
 order, uploads each sum into ``.grad`` on the copy stream, makes the
 compute stream wait for the uploads, and runs ``optimizer.step()``.
 
+A local group of k > 1 processes (one a GPU) on a host: each gradient is
+reduce-scattered over the group and each process's 1/k shard, already
+averaged over k as the JAX tap's, crosses to the host; leaf i's shards
+are the PS tensors ``{prefix}_{i}.{j}``, j < k, of ``shard_elems[i] =
+padded / k`` elements, padded to k times the int8 block (the JAX
+``_TapState``'s names, sizes and padding). The root (local rank 0)
+declares all of them and holds the client; the others declare nothing.
+The group's collectives must run in the same order on every process, and
+hooks fire in the order of each process's own backward, so the hook only
+records the gradient and its event; the stager issues each leaf's (or
+bucket's) reduce-scatter in one fixed order, backward declaration order,
+waiting for the leaf's hook where it must. It then casts or quantises
+the shard, copies it into the host's shared staging
+(``local_stage.Segment``) and signals; the root's stager pushes shard
+``.j`` once rank j's signal has come. ``collect`` has the root wait the
+pulls and signal each leaf; every process reads its shard back, and the
+group all-gathers the leaves into ``.grad``. A process that fails or is
+cancelled mid-step leaves the group's collectives out of step: the group
+fails with it.
+
 The JAX module's ``io_callback_supported``, ``_effects_barrier``, bucketed
 fallback and CPU-deadlock warning have no counterpart: hooks always run
 in PyTorch, and joining the stager's queue is the effects barrier. A
 parameter with no gradient never fires its hook (every JAX tap fires), so
 the step names it as soon as ``backward()`` returns instead of waiting
-for the tap timeout. PS mode runs one process per GPU with no local group,
-so each leaf is one shard, ``{prefix}_{i}.0``; the JAX module's
-reduce-scatter over local chips waits for multi-GPU-per-host PS.
+for the tap timeout.
 
 Options: ``wire_dtype`` shrinks the device->host copy (bf16 2x, int8 +
 per-block scales ~4x; the host pushes f32), and
@@ -55,7 +73,7 @@ the same ``_TapState``.
 from __future__ import annotations
 
 import collections
-import os
+import contextlib
 import threading
 import time
 import weakref
@@ -65,23 +83,30 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 import byteps_tpu_torch as bps
-from byteps_tpu_torch import ps
+from byteps_tpu_torch import local_stage, ps
+from byteps_tpu_torch.parallel import hierarchical as _h
 from byteps_tpu_torch.parallel.hierarchical import _blockwise_quantize
 
 WIRE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
                "float16": torch.float16, "int8": torch.int8}
 
 
+class _Cancelled(Exception):
+    """``settle`` stopped the stager's local round."""
+
+
 class _TapState:
     """Declared tensors, host buffers, hooks and in-flight handles of one
     step builder (or one PS-mode ``DistributedOptimizer``).
 
+    ``client`` is the core's client, None on a local rank other than 0.
     ``buckets`` (lists of leaf indices) makes the stager copy and push a
     bucket once its last leaf has its gradient, instead of every leaf
     queued so far. ``sum_wire`` has the servers sum a ``bfloat16`` or
     ``float16`` wire as it is (declared in that dtype, no host
     re-expansion), unless a codec is configured: the C codecs take f32.
-    ``hooks=False`` registers none: the step stages the leaves itself."""
+    ``hooks=False`` registers none: the step stages the leaves itself.
+    Buffers, tensor ids and handles are keyed by (leaf, shard)."""
 
     def __init__(self, client, params, prefix: str, average: bool,
                  compression_config: Optional[str],
@@ -94,7 +119,11 @@ class _TapState:
                              f"{'|'.join(WIRE_DTYPES)}, got {wire_dtype!r}")
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        st = bps._st()
         self.client = client
+        self.group = st.group
+        self.k = _h.group_size(st.group)
+        self.me = _h.group_rank(st.group)
         self.params = [p for p in params if p.requires_grad]
         self.prefix = prefix
         self.average = average
@@ -104,7 +133,7 @@ class _TapState:
         self.bpps = backward_passes_per_step
         self.sum_wire = (sum_wire and wire_dtype in ("bfloat16", "float16")
                          and not (compression_config
-                                  or ps._codec_active(bps._st())))
+                                  or ps._codec_active(st)))
         self.buckets = ([list(b) for b in buckets] if buckets is not None
                         else None)
         self.bucket_of = [0] * len(self.params)
@@ -114,13 +143,15 @@ class _TapState:
         self.names: Dict[int, str] = {}  # id(param) -> name, for errors
         self.blocks: Dict[int, int] = {}
         self.shard_elems: Dict[int, int] = {}
-        self.tids: Dict[int, int] = {}
-        # leaf -> D2H destinations (the wire: the leaf's dtype, a half
-        # dtype, or int8 codes and their scales) and the buffer the core
-        # sums and pulls into (the wire buffer itself when it is pushed
-        # as it is, else f32)
-        self.wire_bufs: Dict[int, Tuple[torch.Tensor, ...]] = {}
-        self.push_bufs: Dict[int, torch.Tensor] = {}
+        self.tids: Dict[Tuple[int, int], int] = {}
+        # (leaf, shard) -> D2H destinations (the wire: the leaf's dtype, a
+        # half dtype, or int8 codes and their scales) and the buffer the
+        # core sums and pulls into (the wire buffer itself when it is
+        # pushed as it is, else f32); in the host's shared staging with a
+        # local group
+        self.wire_bufs: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
+        self.push_bufs: Dict[Tuple[int, int], torch.Tensor] = {}
+        self.segment: Optional[local_stage.Segment] = None
         self.cv = threading.Condition()
         self.passes = [0] * len(self.params)
         self.fired: set = set()
@@ -130,10 +161,15 @@ class _TapState:
         self.staged = [collections.deque()
                        for _ in range(len(self.buckets or [()]))]
         self.left = [len(b) for b in self.buckets or ()]
-        # leaf -> (handle, error): what the stager enqueued
-        self.inflight: Dict[int, Tuple[Optional[int],
-                                       Optional[Exception]]] = {}
-        self.timeline: dict = {"pushes": [], "landed": None}
+        # local group: leaf -> (gradient, ready event) the hooks recorded
+        # and the stager has not reduced yet; the round of the window
+        self.ready: Dict[int, Tuple[torch.Tensor, object]] = {}
+        self.cancelled = False
+        self.round = 0
+        # (leaf, shard) -> (handle, error): what the stager enqueued
+        self.inflight: Dict[Tuple[int, int],
+                            Tuple[Optional[int], Optional[Exception]]] = {}
+        self.timeline: dict = self._new_timeline()
         cuda = [p.device for p in self.params if p.is_cuda]
         self.copy_stream = torch.cuda.Stream(cuda[0]) if cuda else None
         self.declare_all(self.params)
@@ -151,58 +187,83 @@ class _TapState:
                                          self.stager)
         self._release.atexit = False
 
-    def pad_unit(self, idx: int) -> int:
-        """Leaf ``idx``'s flat gradient is padded to this multiple (the
-        int8 wire's block; the block shrinks with the leaf, so a 3-element
-        bias is not padded out to 256 elements of PS traffic)."""
-        return self.blocks[idx]
+    @staticmethod
+    def _new_timeline() -> dict:
+        """One window's host clock readings: pushes enqueued (this
+        process's, with their bytes), slices staged into the host's
+        shared staging (local group; with their bytes), the last pull
+        waited, and the seconds of each leg of the local group's path."""
+        return {"pushes": [], "staged": [], "landed": None,
+                "split_s": dict.fromkeys(
+                    ("reduce_scatter", "d2h", "core", "h2d", "all_gather"),
+                    0.0)}
 
     def declare_all(self, leaves) -> None:
-        """Declare every leaf in model order (the core's priority order)
-        and allocate its host buffers once."""
-        pin = self.copy_stream is not None
+        """Declare every leaf's k shards in model order (the core's
+        priority order; the root only) and allocate their host buffers
+        once: private pinned buffers for one process, the host's shared
+        staging for a local group. A leaf is padded to k times its int8
+        block before it is scattered; the block shrinks with the leaf's
+        shard, so a 3-element bias is not padded out to k * 256 elements
+        of PS traffic."""
+        k = self.k
         wire = WIRE_DTYPES[self.wire_dtype]
-        specs = []
+        specs, layout, decl = [], [], []
         for i, leaf in enumerate(leaves):
             n = leaf.numel()
-            self.blocks[i] = (min(self.wire_block, max(1, n))
+            self.blocks[i] = (min(self.wire_block, max(1, -(-n // k)))
                               if self.wire_dtype == "int8" else 1)
-            unit = self.pad_unit(i)
-            self.shard_elems[i] = -(-n // unit) * unit
-            m = self.shard_elems[i]
+            m = self.shard_elems[i] = _h.shard_elems(n, k, self.blocks[i])
             if wire is None or self.sum_wire:
-                self.wire_bufs[i] = (ps.host_buffer(m, wire or leaf.dtype,
-                                                    pin),)
-                self.push_bufs[i] = self.wire_bufs[i][0]
+                shard = [(m, wire or leaf.dtype)]  # pushed as it is
             else:
                 # cast and quantised wires land as f32 on the host (the C
-                # codecs and summation operate on f32)
-                self.wire_bufs[i] = (ps.host_buffer(m, wire, pin),) + (
-                    (ps.host_buffer(m // unit, torch.float32, pin),)
-                    if self.wire_dtype == "int8" else ())
-                self.push_bufs[i] = ps.host_buffer(m, torch.float32, pin)
-            specs.append((f"{self.prefix}_{i}.0", m,
-                          ps._dtype_name(self.push_bufs[i]),
-                          self.compression_config))
+                # codecs and summation operate on f32): the wire, the
+                # int8 scales, then the f32 buffer pushed
+                shard = [(m, wire)] + (
+                    [(m // self.blocks[i], torch.float32)]
+                    if self.wire_dtype == "int8" else []) + [
+                        (m, torch.float32)]
+            for j in range(k):
+                layout.append(((i, j), len(specs), len(shard)))
+                specs += shard
+                decl.append((f"{self.prefix}_{i}.{j}", m,
+                             str(shard[-1][1]).replace("torch.", ""),
+                             self.compression_config))
+        if k == 1:
+            pin = self.copy_stream is not None
+            host = [ps.host_buffer(n, d, pin) for n, d in specs]
+        else:
+            self.segment = ps.new_segment(
+                (self.prefix, tuple((p.numel(), str(p.dtype))
+                                    for p in leaves), self.wire_dtype,
+                 self.sum_wire), specs, len(leaves))
+            host = self.segment.buffers
+        for key, at, count in layout:
+            own = host[at:at + count]
+            self.push_bufs[key] = own[-1]
+            self.wire_bufs[key] = tuple(own[:-1] if count > 1 else own)
         self.check_credit()
-        for i, tid in enumerate(ps.declare_ordered(self.client, specs)):
-            self.tids[i] = tid
+        if self.client is not None:
+            ids = ps.declare_ordered(self.client, decl)
+            self.tids.update(zip((key for key, _, _ in layout), ids))
 
     def check_credit(self) -> None:
         """Raise unless the core's push budget holds a whole step's pushes
-        when more than one worker pushes. The core holds a push's credit
-        until its pull returns, and a pull waits for every worker's push
-        of that key. Hooks queue the pushes as backward produces them,
-        and the core admits the queued push of highest priority, so two
-        workers can admit different keys; once each has spent its budget
-        on keys the other has not pushed, neither pull returns and the
-        fleet hangs."""
+        (the root's: every shard) when more than one host pushes. The core
+        holds a push's credit until its pull returns, and a pull waits for
+        every host's push of that key. Hooks queue the pushes as backward
+        produces them, and the core admits the queued push of highest
+        priority, so two hosts can admit different keys; once each has
+        spent its budget on keys the other has not pushed, neither pull
+        returns and the fleet hangs."""
         need = sum(b.nbytes for b in self.push_bufs.values())
         have = ps.credit_bytes(bps._st().config)
-        if bps.size() > 1 and need > have:
+        hosts = bps._hosts()[1]
+        if hosts > 1 and need > have:
             raise ValueError(
                 f"hook-driven pushes of {need} bytes a step over "
-                f"{bps.size()} workers need BYTEPS_SCHEDULING_CREDIT >= "
+                f"{hosts} workers need BYTEPS_SCHEDULING_CREDIT >= "
                 f"{need} (now {have} bytes): with less, the workers can "
                 "spend their budgets on different keys and wait for each "
                 "other forever")
@@ -217,25 +278,31 @@ class _TapState:
         p = self.params[i]
         return self.names.get(id(p), f"#{i} {list(p.shape)}")
 
-    def wire(self, i: int):
-        """Leaf ``i``'s gradient as the wire carries it, cast or
-        quantised on the current stream, and an event marking it ready:
-        the entry the stager copies."""
-        g = self.params[i].grad.detach().reshape(-1)
+    def wire_of(self, i: int, g: torch.Tensor):
+        """Leaf ``i``'s flat gradient shard ``g`` (``shard_elems[i]``
+        elements) as the wire carries it: cast or int8-quantised (codes
+        and per-block scales) on the current stream."""
         if self.wire_dtype == "int8":
-            pad = self.shard_elems[i] - g.numel()
-            if pad:
-                g = torch.cat([g, g.new_zeros(pad)])
-            srcs = _blockwise_quantize(g, self.blocks[i])
-        elif WIRE_DTYPES[self.wire_dtype] is not None:
-            srcs = (g.to(WIRE_DTYPES[self.wire_dtype]),)
-        else:
-            srcs = (g,)
+            return _blockwise_quantize(g, self.blocks[i])
+        if WIRE_DTYPES[self.wire_dtype] is not None:
+            return (g.to(WIRE_DTYPES[self.wire_dtype]),)
+        return (g,)
+
+    def wire(self, i: int):
+        """One process: leaf ``i``'s gradient as the wire carries it, cast
+        or quantised on the current stream, and an event marking it
+        ready: the entry the stager copies."""
+        g = self.params[i].grad.detach().reshape(-1)
+        pad = self.shard_elems[i] - g.numel()
+        if pad and self.wire_dtype == "int8":
+            g = torch.cat([g, g.new_zeros(pad)])
+        srcs = self.wire_of(i, g)
         return i, srcs, ps.ready_event(srcs[0])
 
     def _on_grad(self, i: int, p: torch.Tensor) -> None:
         """The post-accumulate hook, on autograd's thread: launch the wire
-        transform, record its event, queue the leaf for the stager."""
+        transform, record its event, queue the leaf for the stager (a
+        local group: record the gradient and its event only)."""
         if i in self.fired:
             # its push still reads, and its pull will write, the buffers
             raise RuntimeError(
@@ -247,6 +314,9 @@ class _TapState:
             return
         self.passes[i] = 0
         self.fired.add(i)
+        if self.k > 1:
+            self._ready([i])
+            return
         b = self.bucket_of[i]
         self.staged[b].append(self.wire(i))
         if self.buckets is None:
@@ -256,13 +326,25 @@ class _TapState:
         if not self.left[b]:
             self.stager.submit(self._drain, b)
 
+    def _ready(self, leaves) -> None:
+        """Local group: the gradients of ``leaves`` are accumulated; the
+        first of a window starts the stager's round (``_run_local``)."""
+        with self.cv:
+            first = len(self.fired) == len(leaves)
+            for i in leaves:
+                g = self.params[i].grad
+                self.ready[i] = (g, ps.ready_event(g))
+            self.cv.notify_all()
+        if first:
+            self.stager.submit(self._run_local)
+
     def to_host(self, batch) -> None:
         """Copy the wires of ``batch`` [(leaf, wire tensors, event)] to
         their host buffers as one batch on the copy stream, behind the
         events, and wait for it."""
         done = ps.copy_to_host(
             [(src, buf) for i, srcs, _ in batch
-             for src, buf in zip(srcs, self.wire_bufs[i])],
+             for src, buf in zip(srcs, self.wire_bufs[(i, 0)])],
             [ev for _, _, ev in batch if ev is not None], self.copy_stream)
         if done is not None:
             done.synchronize()
@@ -281,37 +363,107 @@ class _TapState:
             self.to_host(batch)
         except Exception as e:  # noqa: BLE001 (raised by collect)
             for i, _, _ in batch:
-                self._record(i, (None, e))
+                self._record((i, 0), (None, e))
             return
         for i, _, _ in batch:
-            self.push_shard(i)
+            self.push_shard((i, 0))
 
-    def _record(self, idx: int, rec) -> None:
+    def _await(self, i: int, deadline: float):
+        """On the stager thread: leaf ``i``'s (gradient, event), once its
+        hook has recorded them."""
         with self.cv:
-            self.inflight[idx] = rec
+            if not self.cv.wait_for(lambda: i in self.ready or self.cancelled,
+                                    max(0.0, deadline - time.monotonic())):
+                raise RuntimeError(
+                    f"the gradient of parameter {self._describe(i)} did "
+                    "not arrive within BYTEPS_TAP_TIMEOUT_S")
+            if self.cancelled:
+                raise _Cancelled()
+            return self.ready.pop(i)
+
+    def _run_local(self) -> None:
+        """On the stager thread, once a window (local group of k > 1):
+        each unit (a bucket, else a leaf) in backward declaration order,
+        the same on every process: wait for its gradients, reduce-scatter
+        them over the group (the local mean with ``average``), cast or
+        quantise this process's shards, copy them into the shared staging
+        and signal; the root then pushes shard ``.j`` of each leaf once
+        rank j's has landed."""
+        self.round += 1
+        step = self.round
+        units = ([list(b) for b in reversed(self.buckets)] if self.buckets
+                 else [[i] for i in reversed(range(len(self.params)))])
+        deadline = time.monotonic() + local_stage.timeout_s()
+        split = self.timeline["split_s"]
+        with (torch.cuda.stream(self.copy_stream) if self.copy_stream
+              is not None else contextlib.nullcontext()):
+            for unit in units:
+                try:
+                    got = [self._await(i, deadline) for i in unit]
+                except _Cancelled:
+                    return
+                t0 = time.perf_counter()
+                for g, ev in got:
+                    if ev is not None:
+                        self.copy_stream.wait_event(ev)
+                        g.record_stream(self.copy_stream)
+                shards = _h.sharded_reduce_scatter(
+                    [g for g, _ in got], [self.shard_elems[i] for i in unit],
+                    self.group)
+                del got
+                if self.average:
+                    shards = [s / self.k for s in shards]
+                t1 = time.perf_counter()
+                done = ps.copy_to_host(
+                    [(src, buf) for i, s in zip(unit, shards)
+                     for src, buf in zip(self.wire_of(i, s),
+                                         self.wire_bufs[(i, self.me)])],
+                    [], self.copy_stream)
+                if done is not None:
+                    done.synchronize()
+                t2 = time.perf_counter()
+                for i in unit:
+                    self.segment.land(i, step)
+                    self.timeline["staged"].append((t2, sum(
+                        b.nbytes for b in self.wire_bufs[(i, self.me)])))
+                split["reduce_scatter"] += t1 - t0
+                split["d2h"] += t2 - t1
+                if self.client is None:
+                    continue
+                for i in unit:
+                    for j in range(self.k):
+                        self.segment.wait_landed(i, j, step,
+                                                 self._describe(i))
+                        self.push_shard((i, j))
+
+    def _record(self, key, rec) -> None:
+        with self.cv:
+            self.inflight[key] = rec
             self.timeline["pushes"].append((time.perf_counter(),
-                                            self.push_bufs[idx].nbytes))
+                                            self.push_bufs[key].nbytes))
             self.cv.notify_all()
 
-    def push_shard(self, idx: int) -> None:
-        """On the stager thread, once the D2H copy landed: re-expand the
-        wire to f32 on the host where it is not pushed as it is, and
-        enqueue the push_pull. A failure is recorded against the leaf,
-        and ``collect`` raises it after settling the rest."""
-        push = self.push_bufs[idx]
+    def push_shard(self, key) -> None:
+        """On the stager thread, once the D2H copy of shard ``key`` (leaf,
+        shard) landed: re-expand the wire to f32 on the host where it is
+        not pushed as it is, and enqueue the push_pull. A failure is
+        recorded against the shard, and ``collect`` raises it after
+        settling the rest."""
+        push = self.push_bufs[key]
         try:
-            wire = self.wire_bufs[idx]
+            wire = self.wire_bufs[key]
             if self.wire_dtype == "int8":
                 q, scales = wire
-                torch.mul(q.view(-1, self.blocks[idx]), scales.view(-1, 1),
-                          out=push.view(-1, self.blocks[idx]))
+                block = self.blocks[key[0]]
+                torch.mul(q.view(-1, block), scales.view(-1, 1),
+                          out=push.view(-1, block))
             elif wire[0] is not push:
                 push.copy_(wire[0])
-            rec = (ps.push_host(self.client, self.tids[idx], push,
+            rec = (ps.push_host(self.client, self.tids[key], push,
                                 self.average), None)
         except Exception as e:  # noqa: BLE001 (raised by collect)
             rec = (None, e)
-        self._record(idx, rec)
+        self._record(key, rec)
 
     def reset_window(self) -> None:
         """Start an accumulation window with no pass counted and nothing
@@ -323,8 +475,10 @@ class _TapState:
             for queue in self.staged:
                 queue.clear()
             self.left = [len(b) for b in self.buckets or ()]
+            self.ready.clear()
+            self.cancelled = False
             self.inflight.clear()
-            self.timeline = {"pushes": [], "landed": None}
+            self.timeline = self._new_timeline()
 
     def check_fired(self) -> None:
         """Raise, after settling what is in flight, naming every
@@ -338,37 +492,54 @@ class _TapState:
                 + " in this step, so their hooks never fired; take "
                 "parameters that get no gradient out of the optimizer")
 
-    def _pop(self, idx: int, deadline: float):
-        """Wait until the stager has enqueued leaf ``idx``'s push, then
+    def _pop(self, key, deadline: float):
+        """Wait until the stager has enqueued shard ``key``'s push, then
         take its handle; the stager runs behind the hooks, so a plain dict
         pop would race."""
         with self.cv:
-            if not self.cv.wait_for(lambda: idx in self.inflight,
+            if not self.cv.wait_for(lambda: key in self.inflight,
                                     max(0.0, deadline - time.monotonic())):
                 return None, RuntimeError(
-                    f"the gradient of parameter {self._describe(idx)} was "
-                    "not pushed within "
+                    f"the gradient of parameter {self._describe(key[0])} "
+                    "was not pushed within "
                     f"BYTEPS_TAP_TIMEOUT_S (stager stuck or step crashed "
                     f"mid-backward)")
-            return self.inflight.pop(idx)
+            return self.inflight.pop(key)
+
+    def _wait_shard(self, key, deadline: float):
+        """The error of shard ``key``'s push and pull, once both are
+        done (None when they succeeded)."""
+        h, e = self._pop(key, deadline)
+        if e is None:
+            try:
+                self.client.wait(h)
+            except Exception as ex:  # noqa: BLE001 (settle all)
+                e = ex
+        return e
 
     def collect(self, timeout: Optional[float] = None) -> None:
         """Wait every handle in model order and upload each sum into its
         ``.grad`` on the copy stream; the caller's stream then waits for
         the uploads. Raises, after settling every handle, when a
-        parameter got no gradient or a push or pull failed."""
+        parameter got no gradient or a push or pull failed. A local group
+        without hooks stages every gradient here, once backward has
+        returned."""
+        staged_here = self.k > 1 and not self.hooks
+        if staged_here:
+            self.fired.update(i for i, p in enumerate(self.params)
+                              if p.grad is not None)
         self.check_fired()
+        if staged_here:
+            self._ready(range(len(self.params)))
         if timeout is None:
-            timeout = float(os.environ.get("BYTEPS_TAP_TIMEOUT_S", "600"))
+            timeout = local_stage.timeout_s()
         deadline = time.monotonic() + timeout
+        if self.k > 1:
+            self._collect_local(deadline)
+            return
         err = None
-        for i, p in enumerate(self.params):
-            h, e = self._pop(i, deadline)
-            if e is None:
-                try:
-                    self.client.wait(h)
-                except Exception as ex:  # noqa: BLE001 (settle all)
-                    e = ex
+        for i in range(len(self.params)):
+            e = self._wait_shard((i, 0), deadline)
             if e is not None:
                 err = err or e
             elif err is None:
@@ -379,10 +550,65 @@ class _TapState:
             raise err
         self.join_uploads()
 
+    def _collect_local(self, deadline: float) -> None:
+        """``collect`` for a local group: once the stager's round is done
+        (every collective of it issued, every shard pushed), the root
+        waits the pulls leaf by leaf in model order and signals each;
+        every process reads its shard of each leaf back as the root's
+        signal comes, and the group all-gathers the leaves into
+        ``.grad``."""
+        split = self.timeline["split_s"]
+        root = self.client is not None
+        err = None
+        try:
+            self.stager.join()
+        except Exception as e:  # noqa: BLE001 (the peers hear of it)
+            err = e
+        step = self.round
+        t0 = time.perf_counter()
+        dev = self.params[0].device
+        mine = torch.empty(sum(self.shard_elems.values()),
+                           dtype=torch.float32, device=dev)
+        slices = list(mine.split([self.shard_elems[i]
+                                  for i in range(len(self.params))]))
+        for i in range(len(self.params)):
+            if root:
+                for j in range(self.k):
+                    e = (self._wait_shard((i, j), deadline)
+                         if err is None else None)
+                    err = err or e
+                self.segment.mark_pulled(i, step, err is None)
+            elif err is None:
+                try:
+                    self.segment.wait_pulled(i, step, self._describe(i))
+                except RuntimeError as e:
+                    err = e
+            if err is None:
+                ps.copy_from_host([(self.push_bufs[(i, self.me)],
+                                    slices[i])], self.copy_stream)
+        self.timeline["landed"] = t1 = time.perf_counter()
+        if err is not None:
+            self.settle()
+            raise err
+        self.join_uploads()
+        if self.copy_stream is not None:
+            torch.cuda.current_stream(dev).synchronize()
+        t2 = time.perf_counter()
+        flats = _h.sharded_all_gather(
+            slices, [p.numel() for p in self.params], self.group)
+        with torch.no_grad():
+            for p, f in zip(self.params, flats):
+                p.grad.copy_(f.view(p.shape))
+        if self.copy_stream is not None:
+            torch.cuda.current_stream(dev).synchronize()
+        split["core"] += t1 - t0
+        split["h2d"] += t2 - t1
+        split["all_gather"] += time.perf_counter() - t2
+
     def upload(self, i: int) -> None:
         """Queue leaf ``i``'s pulled sum into its ``.grad`` on the copy
         stream."""
-        ps.copy_from_host([(self.push_bufs[i], self.params[i].grad)],
+        ps.copy_from_host([(self.push_bufs[(i, 0)], self.params[i].grad)],
                           self.copy_stream)
 
     def join_uploads(self) -> None:
@@ -392,10 +618,13 @@ class _TapState:
                 self.copy_stream)
 
     def settle(self) -> None:
-        """Wait out every queued push and every handle in flight,
-        swallowing their errors (the caller raises its own): the core
-        pulls into the host buffers in place, so none may be reused while
-        a handle lives."""
+        """Stop the stager's local round, wait out every queued push and
+        every handle in flight, swallowing their errors (the caller raises
+        its own): the core pulls into the host buffers in place, so none
+        may be reused while a handle lives."""
+        with self.cv:
+            self.cancelled = True
+            self.cv.notify_all()
         try:
             self.stager.join()
         except Exception:  # noqa: BLE001 (the caller's error wins)
@@ -500,19 +729,22 @@ def make_overlapped_train_step(
     the learning rate). Every parameter of the optimizer must get a
     gradient in each pass. ``step.timings`` holds the last step's host
     clock readings: ``start``, ``backward`` (``backward()`` returned),
-    ``pushes`` ([(enqueued, bytes)]) and ``landed`` (the last pull
-    waited); ``step.close()`` removes the hooks.
+    ``pushes`` ([(enqueued, bytes)]; the root's, with a local group),
+    ``staged`` (a local group: [(copied into the host staging, bytes)]),
+    ``landed`` (the last pull waited) and ``split_s`` (a local group: the
+    seconds of its reduce-scatters, D2H copies, root core, H2D copies and
+    all-gather); ``step.close()`` removes the hooks.
     """
-    client = bps._st().ps_client
-    if client is None:
+    st = bps._st()
+    if not st.ps:
         raise RuntimeError(
             "make_overlapped_train_step needs PS mode (init with "
             "DMLC_NUM_SERVER>0 / BYTEPS_PS_MODE=ps)")
     if wire_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"wire_dtype must be float32|bfloat16|int8, got "
                          f"{wire_dtype!r}")
-    state = _TapState(client, _optimizer_params(optimizer), prefix, average,
-                      compression_config, wire_dtype=wire_dtype,
+    state = _TapState(st.ps_client, _optimizer_params(optimizer), prefix,
+                      average, compression_config, wire_dtype=wire_dtype,
                       wire_block=wire_block,
                       backward_passes_per_step=backward_passes_per_step)
     return _hooked_step(loss_fn, optimizer, state)

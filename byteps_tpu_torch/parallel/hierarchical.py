@@ -19,6 +19,12 @@ share a card) copies through host memory (``_collectives``). Every
 function is per-process code: each member of the groups calls it with its
 own tensors.
 
+``tree_sharded_all_reduce`` is the same two levels for a slow level that
+takes a whole tree at once (PS mode with a local group of k > 1): one
+reduce-scatter gives each process its 1/k slice of every leaf
+(``sharded_reduce_scatter``), a ``leg`` carries the slices across the
+hosts, and one all-gather rebuilds the leaves (``sharded_all_gather``).
+
 ``quantized_all_reduce`` / ``tree_quantized_all_reduce`` are the int8
 transport (``Compression.int8`` and ``int8_dcn``): each quantized level
 reduce-scatters by an all-to-all of blockwise-int8 chunks and their f32
@@ -34,7 +40,7 @@ import torch.distributed as dist
 
 from byteps_tpu_torch.parallel._collectives import (
     Group, all_gather, all_reduce_, all_to_all_single, broadcast_,
-    group_size, reduce_scatter)
+    group_rank, group_size, reduce_scatter)
 
 ReduceFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -148,6 +154,66 @@ def tree_all_reduce(
         out.append(flat[off:off + sz].reshape(leaf.shape).to(leaf.dtype))
         off += sz
     return unflatten(out)
+
+
+def shard_elems(n: int, k: int, unit: int = 1) -> int:
+    """Elements of each of the k slices of a flat leaf of ``n`` elements
+    padded to a multiple of ``k * unit``."""
+    return -(-n // (k * unit)) * unit
+
+
+def sharded_reduce_scatter(flats, shards, group: Group):
+    """One reduce-scatter over ``group`` (k members) that gives this
+    process slice j of the sum of every flat tensor in ``flats``: flat i,
+    zero-padded to ``k * shards[i]`` elements, is split into k slices of
+    ``shards[i]``, and row j of the (k, sum(shards)) input holds slice j
+    of every flat. Returns this process's slices, one a flat."""
+    k = group_size(group)
+    rows = torch.cat([
+        torch.nn.functional.pad(f.reshape(-1), (0, k * s - f.numel()))
+        .view(k, s) for f, s in zip(flats, shards)], dim=1)
+    mine = rows.new_empty(rows.shape[1])
+    reduce_scatter(mine, rows.reshape(-1), group)
+    return list(mine.split(list(shards)))
+
+
+def sharded_all_gather(slices, numels, group: Group):
+    """The inverse of ``sharded_reduce_scatter``'s layout: one all-gather
+    of every process's slices, and flat i rebuilt from its k slices,
+    ``numels[i]`` elements long."""
+    k = group_size(group)
+    mine = torch.cat([s.reshape(-1) for s in slices])
+    rows = mine.new_empty(k * mine.numel())
+    all_gather(rows, mine, group)
+    rows = rows.view(k, -1)
+    out, off = [], 0
+    for s, n in zip(slices, numels):
+        out.append(rows[:, off:off + s.numel()].reshape(-1)[:n])
+        off += s.numel()
+    return out
+
+
+def tree_sharded_all_reduce(leaves, *, group: Group, average: bool,
+                            leg: Callable):
+    """Two-level all-reduce of a list of tensors whose slow level takes a
+    whole tree at once (the PS leg): reduce-scatter every leaf over the
+    fast ``group`` (one collective), divide by its size with ``average``,
+    hand this process's slices to ``leg(slices) -> slices`` (the sum over
+    the slow level of each, the same shapes), and all-gather. Returns the
+    leaves, in their shapes and dtypes."""
+    k = group_size(group)
+    acc = leaves[0].dtype
+    for leaf in leaves[1:]:
+        acc = torch.promote_types(acc, leaf.dtype)
+    shards = [shard_elems(leaf.numel(), k) for leaf in leaves]
+    mine = sharded_reduce_scatter([leaf.to(acc) for leaf in leaves], shards,
+                                  group)
+    if average:
+        mine = [s / k for s in mine]
+    got = [g.to(acc) for g in leg(mine)]
+    flats = sharded_all_gather(got, [leaf.numel() for leaf in leaves], group)
+    return [f.reshape(leaf.shape).to(leaf.dtype)
+            for f, leaf in zip(flats, leaves)]
 
 
 def hierarchical_broadcast(

@@ -4,7 +4,9 @@ Counterpart of ``byteps_tpu/jax/ps.py``: the slow level of the hierarchy.
 Gradients leave the card already reduced over the local group, cross the
 host boundary once, and the C++ core partitions, priority-schedules and
 pushes them over TCP to the CPU servers, which sum them; the core pulls
-the sum back into the same host buffers. One BytePS worker per process.
+the sum back into the same host buffers. One BytePS worker per host: with
+a local group of k > 1 processes (one a GPU), only local rank 0 holds the
+core's client, and the others reach the servers through it.
 
 Host staging: one batched D2H of the whole tree into fresh contiguous
 host tensors (pinned when the tree is on the card), handed to the core
@@ -17,6 +19,14 @@ of this module: tensors declared once on the bridge thread
 dedicated copy stream behind events (``ready_event``, ``copy_to_host``,
 ``copy_from_host``), and one ``Stager`` thread between the copies and the
 core's push queue.
+
+With a local group of k > 1 (``local_push_pull``), the tree is
+reduce-scattered over the group first; each rank copies only its 1/k
+slice of each leaf into the host's shared staging
+(``local_stage.Segment``); the root waits for every rank's slices,
+pushes and pulls the whole leaves under the keys of the one-process step
+(``_tids``), and signals; each rank reads its slice back, and the group
+all-gathers.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ import numpy as np
 import torch
 
 import byteps_tpu_torch as bps
+from byteps_tpu_torch import local_stage
+from byteps_tpu_torch.parallel import hierarchical as _h
 from byteps_tpu_torch.parallel.hierarchical import tree_flatten
 
 # --- ordered bridge execution ----------------------------------------------
@@ -95,7 +107,16 @@ _tid_cache: dict = {}
 declare_steps: int = 0
 # Seconds spent in the last ps_push_pull / ps_broadcast: the D2H copy
 # (waited for), the core's push/sum/pull, and the H2D copy (waited for).
+# With a local group (``local_push_pull``) also the reduce-scatter and the
+# all-gather (host clock from their enqueue to the next wait).
 last_timings = {"d2h_s": 0.0, "core_s": 0.0, "h2d_s": 0.0}
+# Bytes of the last local_push_pull: this rank's D2H copies into the
+# shared staging, and what this process pushed (the root: every leaf).
+last_bytes = {"d2h": 0, "pushed": 0}
+# (prefix, shape signature, wire dtypes) -> the host's shared staging of
+# that tree (local group of k > 1), made at its first use by every rank
+# together. Closed by init()/shutdown().
+_segments: dict = {}
 
 
 def credit_bytes(config) -> int:
@@ -110,6 +131,9 @@ def credit_bytes(config) -> int:
 
 def reset_declare_cache() -> None:
     _tid_cache.clear()
+    for seg in _segments.values():
+        seg.close()
+    _segments.clear()
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -164,12 +188,16 @@ def _wire_plan(leaves, codec: bool):
     return plan
 
 
-def _tids(client, prefix: str, leaves, plan):
-    global declare_steps
+def _tree_key(prefix: str, leaves, plan):
     # Shape/dtype signature in the key: a same-named tree with different
     # leaf sizes must re-declare (the C core rejects size changes).
     sig = tuple((int(l.numel()), _dtype_name(l)) for l in leaves)
-    key = (prefix, sig, tuple(p[0] for p in plan))
+    return (prefix, sig, tuple(p[0] for p in plan))
+
+
+def _tids(client, prefix: str, leaves, plan):
+    global declare_steps
+    key = _tree_key(prefix, leaves, plan)
     tids = _tid_cache.get(key)
     if tids is None:
         declare_steps += 1
@@ -232,8 +260,9 @@ def _run_staged(tree, op, prefix, stream):
     client = st.ps_client
     if client is None:
         raise RuntimeError(
-            "PS mode is not active (init with BYTEPS_PS_MODE=ps / "
-            "DMLC_NUM_SERVER>0)")
+            "this process holds no PS client: PS mode is not active (init "
+            "with BYTEPS_PS_MODE=ps / DMLC_NUM_SERVER>0), or it is a local "
+            "rank other than 0 of a local group")
     leaves, unflatten = tree_flatten(tree)
     if not leaves:
         return tree
@@ -292,12 +321,173 @@ def ps_broadcast(tree, root_rank: int = 0, prefix: str = "param"):
     return _run_ordered(_run_staged, tree, op, prefix, _caller_stream(tree))
 
 
-def ps_barrier() -> None:
-    """Fleet-wide worker barrier through the scheduler."""
+def local_broadcast(leaves, root_rank: int, prefix: str):
+    """``broadcast_parameters`` in PS mode, in three stages: over the
+    local group from ``root_rank``'s local rank, through the servers
+    between the hosts' roots from ``root_rank``'s host (``ps_broadcast``),
+    over the local group from its root. Returns the broadcast copies. On
+    the FIFO bridge thread, as ``local_push_pull``."""
     st = bps._st()
-    if st.ps_client is None:
+    k = _h.group_size(st.group)
+    stream = _caller_stream(leaves)
+
+    def run():
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            synced = _h.tree_broadcast(leaves, root=root_rank % k,
+                                       ici_group=st.group)
+            if st.ps_client is not None:
+                synced = ps_broadcast(synced, root_rank=root_rank // k,
+                                      prefix=prefix)
+            if k > 1:
+                synced = _h.tree_broadcast(synced, root=0,
+                                           ici_group=st.group)
+            return synced
+
+    return _run_ordered(run)
+
+
+def ps_barrier() -> None:
+    """Fleet-wide worker barrier through the scheduler (with a local
+    group: the group, the roots through the scheduler, the group)."""
+    st = bps._st()
+    if not st.ps:
         raise RuntimeError("PS mode is not active")
-    st.ps_client.barrier()
+    local = st.group if _h.group_size(st.group) > 1 else None
+    if local is not None:
+        torch.distributed.barrier(group=local)
+    if st.ps_client is not None:
+        st.ps_client.barrier()
+    if local is not None:
+        torch.distributed.barrier(group=local)
+
+
+# --- a local group of k > 1 processes ----------------------------------------
+
+def new_segment(key, specs, n_leaves: int) -> local_stage.Segment:
+    """A shared staging of the host for ``key`` (a tuple whose first
+    item is the prefix), made by every rank of the local group together
+    (``local_stage.Segment``). Its file is named by the scheduler's port,
+    this host's index, the prefix and the key's crc, so that two trees,
+    two hosts on one machine or two fleets never meet in one name."""
+    st = bps._st()
+    tag = "".join(c if c.isalnum() else "_" for c in key[0])
+    crc = zlib.crc32(repr(key).encode())
+    name = f"bps_{st.config.root_port}_{bps._hosts()[0]}_{tag}_{crc:08x}"
+    return local_stage.Segment(st.group, name, specs, n_leaves, st.device)
+
+
+def segment(key, specs, n_leaves: int) -> local_stage.Segment:
+    """The staging of the tree ``key`` (prefix, signature, wire dtypes)
+    for ``local_push_pull``, made at its first use."""
+    seg = _segments.get(key)
+    if seg is None:
+        seg = _segments[key] = new_segment(key, specs, n_leaves)
+    return seg
+
+
+def _local_leg(slices, numels, average: bool, prefix: str, compression,
+               marks: dict):
+    """``tree_sharded_all_reduce``'s leg in PS mode: this rank's slices
+    (its 1/k of each leaf, reduced over the local group) through the
+    host's shared staging and the root's core client; returns the slices
+    summed (averaged) over the hosts."""
+    st = bps._st()
+    k, me = _h.group_size(st.group), _h.group_rank(st.group)
+    marks["leg"] = time.perf_counter()
+    wires = [compression.compress(s) for s in slices]
+    metas = [torch.empty(n, dtype=w.dtype, device="meta")
+             for n, w in zip(numels, wires)]
+    plan = _wire_plan(metas, _codec_active(st))
+    dtypes = [getattr(torch, wire) for wire, _ in plan]
+    seg = segment(_tree_key(prefix, metas, plan),
+                  [(k * w.numel(), d) for w, d in zip(wires, dtypes)],
+                  len(wires))
+    seg.round += 1
+    step = seg.round
+    mine = [buf[me * w.numel():(me + 1) * w.numel()]
+            for buf, w in zip(seg.buffers, wires)]
+    pin = seg.pinned
+    for dst, w, d in zip(mine, wires, dtypes):
+        dst.copy_(w.to(d), non_blocking=pin)
+    if pin:
+        torch.cuda.current_stream().synchronize()
+    for i in range(len(wires)):
+        seg.land(i, step)
+    t1 = time.perf_counter()
+    what = [f"leaf {i} of {prefix!r}" for i in range(len(wires))]
+    pushed = 0
+    if st.ps_client is not None:
+        for i in range(len(wires)):
+            for j in range(k):
+                seg.wait_landed(i, j, step, what[i])
+        client = st.ps_client
+        tids = _tids(client, prefix, metas, plan)
+        staged = []
+        ok = False
+        try:
+            for tid, buf, n, (wire, _) in zip(tids, seg.buffers, numels,
+                                               plan):
+                h = client.push_pull(tid, _numpy_view(buf[:n]),
+                                     average=average,
+                                     async_mode=st.config.enable_async,
+                                     dtype=wire)
+                staged.append((h, buf, None))
+                pushed += buf[:n].nbytes
+        finally:
+            # every handle enqueued is waited, a failed enqueue included
+            try:
+                _wait_all(client, staged)
+                ok = len(staged) == len(wires)
+            finally:
+                for i in range(len(wires)):
+                    seg.mark_pulled(i, step, ok)
+    else:
+        for i in range(len(wires)):
+            seg.wait_pulled(i, step, what[i])
+    t2 = time.perf_counter()
+    out = [compression.decompress(
+        src.to(s.device, non_blocking=pin).to(w.dtype), s.dtype)
+        for src, s, w in zip(mine, slices, wires)]
+    if pin:
+        torch.cuda.current_stream().synchronize()
+    marks["end"] = time.perf_counter()
+    last_timings.update(d2h_s=t1 - marks["leg"], core_s=t2 - t1,
+                        h2d_s=marks["end"] - t2)
+    last_bytes.update(d2h=sum(m.nbytes for m in mine), pushed=pushed)
+    return out
+
+
+def local_push_pull(leaves, average: bool, prefix: str, compression):
+    """Sum (or average) a list of tensors across every process of the
+    fleet, in PS mode with a local group of k > 1: the local
+    reduce-scatter (the local mean with ``average``), the PS leg of each
+    rank's slices through the host's shared staging (``_local_leg``), and
+    the local all-gather; ``compression`` casts the slices for the PS leg.
+    Every rank calls it with its own tensors, in the same order. Runs on
+    the FIFO bridge thread, so its collectives keep one order against
+    ``push_pull_async``; the copies run on the caller's current
+    stream."""
+    st = bps._st()
+    stream = _caller_stream(leaves)
+
+    def run():
+        marks = {}
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            out = _h.tree_sharded_all_reduce(
+                leaves, group=st.group, average=average,
+                leg=lambda s: _local_leg(s, [l.numel() for l in leaves],
+                                         average, prefix, compression,
+                                         marks))
+            if stream is not None:
+                stream.synchronize()
+        last_timings.update(reduce_scatter_s=marks["leg"] - t0,
+                            all_gather_s=time.perf_counter() - marks["end"])
+        return out
+
+    return _run_ordered(run)
 
 
 # --- staging for the overlapped steps ----------------------------------------

@@ -12,6 +12,10 @@ optimizer:
   transport;
 - PS mode: the local reduce, the compression cast, the host round trip
   through the CPU parameter servers (``ps_push_pull``), the cast back.
+  With a local group of k > 1 processes the local level is a
+  reduce-scatter: each rank's 1/k slice of every gradient goes through the
+  host's shared staging and its root's client, and the group all-gathers
+  the sums (``ps.local_push_pull``).
 
 The asynchronous step (PS mode only) applies the optimizer locally and
 pushes the parameters' change to servers that hold the parameters.
@@ -47,8 +51,10 @@ def make_train_step(
     gradients of the parameters in ``optimizer.param_groups`` are reduced
     across workers (mean with ``average``, else sum) before
     ``optimizer.step()``. The returned loss is detached and, in collective
-    mode, averaged over the process groups. ``ps_prefix`` names the gradient
-    tensors in the PS registry (PS mode only).
+    mode, averaged over the process groups (in PS mode it is this
+    process's). ``ps_prefix`` names the gradient tensors in the PS
+    registry (PS mode only): the keys are those of the JAX package's PS
+    step, whole leaves, with a local group too.
     """
     st = bps._st()
     use_ps = st.config.use_ps
@@ -64,10 +70,11 @@ def make_train_step(
 
     def reduce(grads):
         dtypes = [g.dtype for g in grads]
+        if use_ps and _h.group_size(group) > 1:
+            from byteps_tpu_torch.ps import local_push_pull
+            return local_push_pull(grads, average, ps_prefix, compression)
         if use_ps:
             from byteps_tpu_torch.ps import ps_push_pull
-            grads = _h.tree_all_reduce(grads, ici_group=group,
-                                       average=average)
             wire = ps_push_pull([compression.compress(g) for g in grads],
                                 average=average, prefix=ps_prefix)
         else:
@@ -115,12 +122,23 @@ def make_async_train_step(
     ``loss_fn(model, batch)``, backward, ``optimizer.step()``, the delta
     ``p_after - p_before`` pushed with ``async_mode=True`` and summed into
     the servers' copy, and the pulled copy written into the parameters.
+
+    One process a host: a local group of more than one process is
+    refused, as the JAX async step (one device, nothing reduced locally)
+    has no local level.
     """
     from byteps_tpu_torch import ps as _ps
 
-    if bps._st().ps_client is None:
+    st = bps._st()
+    if not st.ps:
         raise RuntimeError(
             "make_async_train_step needs PS mode (DMLC_NUM_SERVER>0)")
+    if _h.group_size(st.group) > 1:
+        raise ValueError(
+            f"make_async_train_step takes one process a host, not a local "
+            f"group of {_h.group_size(st.group)}: the JAX package's async "
+            "step runs on one device and reduces nothing locally, so the "
+            "servers would apply each process's change as a host's")
     params = [p for g in optimizer.param_groups for p in g["params"]]
     # The deltas must land on the keys the seed initialised: both trees
     # have the parameters' shapes and dtypes and go through the same

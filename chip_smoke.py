@@ -102,7 +102,20 @@ Phases, each of which raises on failure:
    (d 768, d_ff 3072, 8 experts) with EP = 2, 4096 tokens a rank, top-1
    (capacity factor 1.25) and top-2 (2.5), against the dense layer; (e)
    ``dryrun_multichip(2)``. The kernel phase checks and times the
-   kernels at (a)'s and (b)'s shapes too.
+   kernels at (a)'s and (b)'s shapes too;
+11. (run right after phase 10) multi-GPU-per-host PS (see
+   ``local_ps_phase``): a scheduler, one server and two hosts, each the
+   port's launcher with --workers-per-host 2 (python -m
+   byteps_tpu_torch.launcher --workers-per-host 2 -- python chip_smoke.py
+   --local-ps-worker DIR --port P), all four processes on cuda:0, each
+   host's pair in a gloo group of its own sharing host staging, one core
+   client a host (local rank 0's): GPT-2 small (flash, seed-0 weights) on
+   rows [2r, 2r + 2) of phase 3's tokens for global rank r, 3 steps each
+   of the plain step, the overlapped step with the f32 and the bf16
+   wire, the hook-driven buckets and the DistributedOptimizer loop, then
+   an evaluation forward, held to one process that combines the four
+   ranks' gradients in the fleet's order: equal to the bit on the f32
+   wire.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -542,11 +555,11 @@ def _tokens(device, rows=BATCH, seq=SEQ, vocab=50257):
         rng.integers(0, vocab, size=(rows, seq)).astype(np.int64)).to(device)
 
 
-def _model(attn_impl="flash"):
+def _model(attn_impl="flash", device=None):
     import torch
 
     from byteps_tpu_torch.models import GPT2Small
-    return GPT2Small(attn_impl=attn_impl,
+    return GPT2Small(attn_impl=attn_impl, device=device,
                      generator=torch.Generator().manual_seed(0))
 
 
@@ -3066,6 +3079,370 @@ def _par_gates(ref, recs, tmp):
     return out
 
 
+# --- phase 11: two hosts of two ranks in PS mode on one card -----------------
+
+LOCAL_HOSTS, LOCAL_SIZE, LOCAL_STEPS, LOCAL_TIMEOUT_S = 2, 2, 3, 600
+# the PS paths of a host of LOCAL_SIZE ranks, with the wire each sums
+LOCAL_PATHS = {"ps": "float32", "overlap_f32": "float32",
+               "overlap_bf16": "bfloat16", "bucketed_multi": "float32",
+               "distributed_optimizer": "float32"}
+
+
+def _local_rows(rank):
+    return slice(2 * rank, 2 * rank + 2)
+
+
+def _local_reference(tmp):
+    """The one-process run phase 11 holds the fleet to, on the card:
+    GPT2Small(flash) with the seed-0 weights and phase 3's AdamW; each
+    step computes the four ranks' gradients on their rows of phase 3's
+    tokens, combines them in the fleet's order (within a host the
+    two-operand sum over 2, the local mean; then the servers' two-operand
+    sum over the hosts, their mean) and steps. Writes the parameters
+    after LOCAL_STEPS steps to TMP/reference.pt; returns (each rank's
+    losses, each parameter's number of elements)."""
+    import torch
+
+    model = GPT2.make()
+    params = list(model.parameters())
+    opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)
+    tokens = GPT2.batch(torch.device("cuda"))
+    ranks = LOCAL_HOSTS * LOCAL_SIZE
+    losses = [[] for _ in range(ranks)]
+    for _ in range(LOCAL_STEPS):
+        grads = []
+        for r in range(ranks):
+            opt.zero_grad(set_to_none=True)
+            loss = GPT2.loss(model, tokens[_local_rows(r)])
+            loss.backward()
+            losses[r].append(loss.item())
+            grads.append([p.grad for p in params])
+        for i, p in enumerate(params):
+            hosts = [(grads[2 * h][i] + grads[2 * h + 1][i]) / LOCAL_SIZE
+                     for h in range(LOCAL_HOSTS)]
+            p.grad = (hosts[0] + hosts[1]) / LOCAL_HOSTS
+        opt.step()
+        del grads
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(tmp, "reference.pt"))
+    numels = [p.numel() for p in params]
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return losses, numels
+
+
+def _local_step_record(label, step):
+    """One step's staging readings on this rank: the five legs' seconds,
+    the bytes copied into the host's shared staging and pushed, and the
+    exposed communication (the hook-driven paths)."""
+    from byteps_tpu_torch import ps
+    if label == "ps":
+        t = ps.last_timings
+        return {"split_s": {"reduce_scatter": t["reduce_scatter_s"],
+                            "d2h": t["d2h_s"], "core": t["core_s"],
+                            "h2d": t["h2d_s"],
+                            "all_gather": t["all_gather_s"]},
+                "d2h_bytes": ps.last_bytes["d2h"],
+                "pushed_bytes": ps.last_bytes["pushed"]}
+    t = step.timings
+    return {"split_s": dict(t["split_s"]),
+            "d2h_bytes": sum(n for _, n in t["staged"]),
+            "pushed_bytes": sum(n for _, n in t["pushes"]),
+            "exposed_ms": (t["landed"] - t["backward"]) * 1e3,
+            "staged_before_backward_share": sum(
+                n for ts, n in t["staged"] if ts < t["backward"]) / max(
+                1, sum(n for _, n in t["staged"]))}
+
+
+def local_ps_worker(out_dir, port):
+    """One process of phase 11 (``python chip_smoke.py --local-ps-worker
+    DIR --port P``), started by the port's launcher with
+    ``--workers-per-host 2`` (BYTEPS_LOCAL_RANK, BYTEPS_LOCAL_SIZE) for
+    host DMLC_WORKER_ID: on cuda:0 (every process shares the one card) in
+    a gloo group with its host's other rank (rendezvous at localhost:P),
+    PS mode, LOCAL_STEPS steps of each path of LOCAL_PATHS from the
+    seed-0 weights on rows [2 r, 2 r + 2) of phase 3's tokens for global
+    rank r, then an evaluation forward. Writes DIR/host<h>_rank<l>.json;
+    compares its parameters after each path with DIR/reference.pt."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.parallel import _collectives as C
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    torch.cuda.set_device(0)
+    local = int(os.environ["BYTEPS_LOCAL_RANK"])
+    host = int(os.environ["DMLC_WORKER_ID"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=local,
+        world_size=int(os.environ["BYTEPS_LOCAL_SIZE"]),
+        timeout=datetime.timedelta(seconds=LOCAL_TIMEOUT_S))
+    t_start = time.perf_counter()
+    bps.init(device="cuda:0")
+    try:
+        rank, size = bps.rank(), bps.size()
+        rec = {"host": host, "local_rank": local, "rank": rank,
+               "size": size, "client": bps._st().ps_client is not None,
+               "hosts": bps._hosts()[1], "paths": {}}
+        ref = torch.load(os.path.join(out_dir, "reference.pt"))
+        tokens = GPT2.batch(bps.device())[_local_rows(rank)]
+        # the default device of local rank 1 is cuda:1; every process
+        # here shares the one card
+        lm = GPT2._replace(make=lambda *a, **k: GPT2.make(
+            *a, device=bps.device(), **k))
+        for label in LOCAL_PATHS:
+            torch.cuda.reset_peak_memory_stats()
+            model, step = _ps_path(label, lm)
+            out = {"losses": [], "step_ms": [], "launches": dict.fromkeys(
+                fa.LAUNCHES, 0), "steps": []}
+            for _ in range(LOCAL_STEPS):
+                torch.cuda.synchronize()
+                C.reset_bytes()
+                fa.reset_launches()
+                t0 = time.perf_counter()
+                loss = step(model, tokens)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["losses"].append(loss.item())
+                for k, v in fa.LAUNCHES.items():
+                    out["launches"][k] += v
+                out["steps"].append(dict(_local_step_record(label, step),
+                                         gloo_staged_bytes=C.BYTES[
+                                             "staged"]))
+            out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            diff = max((v.float() - ref[k].to(v.device).float()).abs()
+                       .max().item() for k, v in model.state_dict().items())
+            rel = max(((v.double() - ref[k].to(v.device).double()).abs()
+                       / ref[k].to(v.device).double().abs().clamp_min(
+                           1e-30)).max().item()
+                      for k, v in model.state_dict().items())
+            out["params_max_abs_diff"], out["params_max_rel_diff"] = diff, rel
+            if label == "distributed_optimizer":
+                fa.reset_launches()
+                with torch.no_grad():
+                    logits = model(tokens)
+                torch.cuda.synchronize()
+                out["eval_launches"] = dict(fa.LAUNCHES)
+                out["eval_finite"] = bool(torch.isfinite(logits).all())
+                del logits
+            if hasattr(step, "close"):
+                step.close()
+            del model, step
+            gc.collect()  # the next path's peak holds no model of this one
+            torch.cuda.empty_cache()
+            rec["paths"][label] = out
+            log(f"local ps host {host} rank {local}: {label} losses "
+                f"{out['losses']} ms {[round(x) for x in out['step_ms']]}")
+        rec["seconds"] = time.perf_counter() - t_start
+    finally:
+        bps.shutdown()
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"host{host}_rank{local}.json"),
+              "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _local_worker_cmd(tmp, port):
+    return [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+            "--local-ps-worker", tmp, "--port", str(port)]
+
+
+def _run_local_fleet(tmp):
+    """A scheduler and one server with DMLC_NUM_WORKER = LOCAL_HOSTS, then
+    LOCAL_HOSTS hosts, each ``python -m byteps_tpu_torch.launcher
+    --workers-per-host LOCAL_SIZE -- python chip_smoke.py
+    --local-ps-worker TMP --port P`` with DMLC_WORKER_ID = h, every
+    process in a session of its own; waits for all, kills whatever is
+    left; returns (the records, the fleet's port)."""
+    import signal
+    port = _free_port()
+    env = dict(os.environ)
+    env.update({
+        "PYTHONPATH": HERE + os.pathsep + env.get("PYTHONPATH", ""),
+        "DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+        "DMLC_NUM_WORKER": str(LOCAL_HOSTS), "DMLC_NUM_SERVER": "1",
+        "PS_HEARTBEAT_INTERVAL": "1", "BYTEPS_PS_MODE": "ps",
+        # a step's pushes within the push budget, as phase 8's
+        "BYTEPS_SCHEDULING_CREDIT": str(1 << 30)})
+    cmds = [(role, dict(env, DMLC_ROLE=role),
+             [sys.executable, "-m", "byteps_tpu_torch.server"])
+            for role in ("scheduler", "server")]
+    cmds += [(f"host{h}", dict(env, DMLC_ROLE="worker",
+                               DMLC_WORKER_ID=str(h)),
+              [sys.executable, "-m", "byteps_tpu_torch.launcher",
+               "--workers-per-host", str(LOCAL_SIZE), "--",
+               *_local_worker_cmd(tmp, _free_port())])
+             for h in range(LOCAL_HOSTS)]
+    procs = []
+    for name, e, cmd in cmds:
+        out = open(os.path.join(tmp, f"{name}.log"), "w")
+        procs.append((name, out, subprocess.Popen(
+            cmd, env=e, cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)))
+    deadline = time.monotonic() + LOCAL_TIMEOUT_S
+    rcs = {}
+    for name, out, p in procs[::-1]:  # the hosts first
+        try:
+            rcs[name] = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rcs[name] = None
+    for name, out, p in procs:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+        out.close()
+        with open(out.name) as f:
+            text = f.read()
+        log(f"--- phase 11 {name} (exit {rcs[name]}) ---\n"
+            + text[-8000 if rcs[name] != 0 else -1500:])
+    if any(rc != 0 for rc in rcs.values()):
+        raise AssertionError(f"phase 11 fleet exited {rcs}")
+    recs = {}
+    for h in range(LOCAL_HOSTS):
+        for r in range(LOCAL_SIZE):
+            with open(os.path.join(tmp, f"host{h}_rank{r}.json")) as f:
+                recs[h * LOCAL_SIZE + r] = json.load(f)
+    return recs, port
+
+
+def local_ps_phase():
+    """Phase 11. Multi-GPU-per-host PS: the one-process reference in this
+    process (``_local_reference``), freed from the card; then a fleet of
+    LOCAL_HOSTS hosts of LOCAL_SIZE ranks, every process on the one card
+    (``local_ps_worker``): each host's ranks form a gloo group of their
+    own, whose collectives the port stages through host memory, and share
+    host staging (``local_stage``; ``df`` of /dev/shm is logged first);
+    only local rank 0 of each host holds a core client. Gates, each
+    written before the run that first read it:
+    - roles: global rank h * 2 + l, size 4, 2 hosts; a client on local
+      rank 0 only;
+    - the f32 paths (ps, overlap_f32, bucketed_multi,
+      distributed_optimizer): every rank's losses equal to the
+      reference's for its rows and its parameters equal to the
+      reference's, to the bit (two-operand f32 sums commute, dividing by
+      2 is exact, and the GPT-2 step repeats to the bit);
+    - overlap_bf16: each rank's losses within ``_losses_match``'s bf16
+      bound of its reference losses;
+    - #1, #3 and #4 launched 12 times a step on every rank and path, #2
+      never in training, 12 times (alone) in the evaluation forward;
+    - every step: each rank copies into the host's staging half of each
+      f32 gradient (ceil(n / 2) elements a leaf; the bf16 wire half of
+      that), and each root pushes one gradient's bytes (whole leaves on
+      the plain path: 4 n; the shards elsewhere, 4 x 2 ceil(n / 2)), the
+      others none;
+    - no staging file of the fleet is left in its directory."""
+    import shutil
+
+    from byteps_tpu_torch import local_stage
+    df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                        text=True).stdout.strip()
+    log("phase 11: df /dev/shm\n" + df)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_local_ps_")
+    try:
+        t0 = time.perf_counter()
+        ref_losses, numels = _local_reference(tmp)
+        ref_s = time.perf_counter() - t0
+        recs, port = _run_local_fleet(tmp)
+        fleet_s = time.perf_counter() - t0 - ref_s
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stage = local_stage.stage_dir(0)
+    left = sorted(n for n in os.listdir(stage)
+                  if n.startswith(f"bps_{port}_"))
+    gates = _local_gates(recs, ref_losses, numels, left)
+    out = {"df_dev_shm": df, "stage_dir": stage, "reference_s": ref_s,
+           "fleet_s": fleet_s, "reference_losses": ref_losses,
+           "gates": gates, "ranks": recs}
+    log("phase 11 (two hosts of two ranks, PS):", json.dumps(
+        {k: v for k, v in out.items() if k != "ranks"}))
+    return out
+
+
+def _local_gates(recs, ref_losses, numels, left):
+    """Phase 11's gates (``local_ps_phase``); returns what they read."""
+    half = sum(-(-n // LOCAL_SIZE) for n in numels)
+    fails, read = [], {}
+    if left:
+        fails.append(f"staging files left: {left}")
+    for r, rec in sorted(recs.items()):
+        want = (r, LOCAL_HOSTS * LOCAL_SIZE, LOCAL_HOSTS,
+                rec["local_rank"] == 0)
+        got = (rec["rank"], rec["size"], rec["hosts"], rec["client"])
+        if got != want:
+            fails.append(f"rank {r}: (rank, size, hosts, client) {got}, "
+                         f"expected {want}")
+        for label, wire in LOCAL_PATHS.items():
+            out = rec["paths"][label]
+            try:
+                _check_launches(f"phase 11 rank {r} {label}",
+                                out["launches"], GPT2.layers, LOCAL_STEPS)
+                if wire == "float32":
+                    if out["losses"] != ref_losses[r]:
+                        raise AssertionError(
+                            f"losses {out['losses']} != reference "
+                            f"{ref_losses[r]}")
+                    if out["params_max_abs_diff"] != 0:
+                        raise AssertionError(
+                            f"parameters {out['params_max_abs_diff']} "
+                            "from the reference's")
+                else:
+                    _losses_match(f"rank {r} {label}", out["losses"],
+                                  ref_losses[r], wire)
+                elem = 2 if wire == "bfloat16" else 4
+                staged = elem * half
+                pushed = (4 * sum(numels) if label == "ps"
+                          else 4 * LOCAL_SIZE * half)
+                for s in out["steps"]:
+                    if s["d2h_bytes"] != staged:
+                        raise AssertionError(f"staged {s['d2h_bytes']} "
+                                             f"bytes, expected {staged}")
+                    want_push = pushed if rec["local_rank"] == 0 else 0
+                    if s["pushed_bytes"] != want_push:
+                        raise AssertionError(
+                            f"pushed {s['pushed_bytes']} bytes, expected "
+                            f"{want_push}")
+            except AssertionError as e:
+                fails.append(f"rank {r} {label}: {e}")
+        ev = rec["paths"]["distributed_optimizer"]
+        try:
+            _check_eval_launches(f"phase 11 rank {r}", ev["eval_launches"],
+                                 GPT2.layers)
+            if not ev["eval_finite"]:
+                raise AssertionError("non-finite evaluation logits")
+        except AssertionError as e:
+            fails.append(f"rank {r}: {e}")
+    read["grad_bytes"] = 4 * sum(numels)
+    read["staged_bytes_f32"] = 4 * half
+    read["medians"] = {label: {
+        "step_ms": [_median(recs[r]["paths"][label]["step_ms"])
+                    for r in sorted(recs)],
+        "split_ms": {leg: [_median([s["split_s"][leg] * 1e3 for s in
+                                    recs[r]["paths"][label]["steps"]])
+                           for r in sorted(recs)]
+                     for leg in ("reduce_scatter", "d2h", "core", "h2d",
+                                 "all_gather")},
+        "exposed_ms": [_median([s.get("exposed_ms", 0.0) for s in
+                                recs[r]["paths"][label]["steps"]])
+                       for r in sorted(recs)],
+        "gloo_staged_bytes": recs[0]["paths"][label]["steps"][-1][
+            "gloo_staged_bytes"],
+        "peak_memory_gb": [recs[r]["paths"][label]["peak_memory_gb"]
+                           for r in sorted(recs)],
+        "params_max_abs_diff": [recs[r]["paths"][label][
+            "params_max_abs_diff"] for r in sorted(recs)]}
+        for label in LOCAL_PATHS}
+    if fails:
+        raise AssertionError("phase 11 failed:\n" + "\n".join(fails))
+    return read
+
+
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
@@ -3110,6 +3487,8 @@ def main() -> int:
     sp = sp_phase(coll_losses)
     # phase 10 too, before phases 4-8 leave memory held in this process
     par = par_phase()
+    # and phase 11, whose four processes share the card
+    local = local_ps_phase()
     alone, paths = ps_phase(coll_losses)
     plain = paths.pop("ps")
     images = resnet_phase()
@@ -3154,6 +3533,7 @@ def main() -> int:
         "launched_fleets": launched,
         "sequence_parallel": sp,
         "parallel": par,
+        "local_ps": local,
         "memory_held_after_phase8_gb": held_gb,
         "sdpa_fwd_bwd_ms": {case: timing[case]["sdpa_fwd_bwd_ms"]
                             for case in TIMED},
@@ -3192,7 +3572,13 @@ def main() -> int:
                    "fwd": par["ranks"][0]["a"]["eval_launches"]["fwd"]},
                "gpt2m_1f1b_rank0": par["ranks"][0]["b"]["1f1b"]["launches"],
                "gpt2m_gpipe_rank0": par["ranks"][0]["b"]["gpipe"]["launches"],
-               "gpt2m_zero_rank0": par["ranks"][0]["c"]["zero"]["launches"]}
+               "gpt2m_zero_rank0": par["ranks"][0]["c"]["zero"]["launches"],
+               # global rank 0 of phase 11's fleet: the plain PS step's
+               # training steps, and for fwd the evaluation forward
+               "gpt2_local_ps_rank0": {
+                   **local["ranks"][0]["paths"]["ps"]["launches"],
+                   "fwd": local["ranks"][0]["paths"][
+                       "distributed_optimizer"]["eval_launches"]["fwd"]}}
     kernels = []
     for name, (fn, replaces) in REPLACES.items():
         kernels.append({
@@ -3220,6 +3606,7 @@ def _worker_main(argv) -> int:
     p.add_argument("--trace", action="store_true")
     p.add_argument("--sp-worker", metavar="DIR")
     p.add_argument("--par-worker", metavar="DIR")
+    p.add_argument("--local-ps-worker", metavar="DIR")
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--port", type=int, default=0)
     args = p.parse_args(argv)
@@ -3228,12 +3615,14 @@ def _worker_main(argv) -> int:
         return sp_worker(args.sp_worker, args.rank, args.port)
     if args.par_worker:
         return par_worker(args.par_worker, args.rank, args.port)
+    if args.local_ps_worker:
+        return local_ps_worker(args.local_ps_worker, args.port)
     return launched_worker(args.launched_worker, args.preempt_after,
                            args.trace)
 
 
 if __name__ == "__main__":
-    if {"--launched-worker", "--sp-worker", "--par-worker"} & set(
-            sys.argv[1:]):
+    if {"--launched-worker", "--sp-worker", "--par-worker",
+            "--local-ps-worker"} & set(sys.argv[1:]):
         sys.exit(_worker_main(sys.argv[1:]))
     sys.exit(main())

@@ -32,7 +32,8 @@ def test_port_imports_no_jax_and_nothing_of_byteps_tpu():
     assert got["bad"] == [], got["bad"]
     for mod in ("byteps_tpu_torch.ops.flash_attention", "byteps_tpu_torch.ps",
                 "byteps_tpu_torch.training", "byteps_tpu_torch.overlap",
-                "byteps_tpu_torch.bucketed", "byteps_tpu_torch.core.ffi",
+                "byteps_tpu_torch.bucketed",
+                "byteps_tpu_torch.local_stage", "byteps_tpu_torch.core.ffi",
                 "byteps_tpu_torch.server.__main__",
                 "byteps_tpu_torch.models.transformer",
                 "byteps_tpu_torch.models.llama",

@@ -158,13 +158,15 @@ def _gloo_worker(rank, world, port, out_dir):
             out = tree_broadcast(poisoned, root=1, **kw)
             results[f"bcast_nan_{label}"] = [o.double().numpy() for o in out]
 
-        # a local group of 2 feeding the PS leg is a later slice
+        # a local group of 2 feeds the PS leg only when its ranks are the
+        # launcher's BYTEPS_LOCAL_RANK 0 and 1 of BYTEPS_LOCAL_SIZE 2
+        # (tests/test_torch_local_ps.py runs it); here they are not
         os.environ["BYTEPS_PS_MODE"] = "ps"
         try:
             bps.init(device="cpu")
             raise AssertionError("PS mode with a local group of 2 started")
-        except NotImplementedError as e:
-            assert "multi-GPU-per-host PS" in str(e)
+        except ValueError as e:
+            assert "BYTEPS_LOCAL_SIZE=2" in str(e)
 
         # the collective train step on half batches vs one process
         os.environ["BYTEPS_PS_MODE"] = "collective"
