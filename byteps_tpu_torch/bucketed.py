@@ -24,9 +24,10 @@ a pipeline instead of the tree crossing each leg whole:
 Either way the sums land in ``.grad`` on the copy stream, and the
 optimizer steps once the compute stream has waited for the uploads. With
 a local group of k > 1 processes a bucket is also the unit of the local
-reduce-scatter, which ``_TapState``'s stager issues bucket by bucket in
-backward order (``overlap.py``); ``multi_program=False`` then stages
-every bucket after backward through the same stager.
+reduce-scatter, which ``_TapState``'s round issues bucket by bucket in
+backward order on the bridge thread (``overlap.py``);
+``multi_program=False`` then stages every bucket after backward through
+the same round.
 ``donate`` has no counterpart: PyTorch updates the parameters in place,
 as ``training.py`` does.
 """

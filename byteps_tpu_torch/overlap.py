@@ -44,16 +44,19 @@ padded / k`` elements, padded to k times the int8 block (the JAX
 declares all of them and holds the client; the others declare nothing.
 The group's collectives must run in the same order on every process, and
 hooks fire in the order of each process's own backward, so the hook only
-records the gradient and its event; the stager issues each leaf's (or
-bucket's) reduce-scatter in one fixed order, backward declaration order,
-waiting for the leaf's hook where it must. It then casts or quantises
-the shard, copies it into the host's shared staging
-(``local_stage.Segment``) and signals; the root's stager pushes shard
+records the gradient and its event; the window's round (``_run_local``)
+issues each leaf's (or bucket's) reduce-scatter in one fixed order,
+backward declaration order, waiting for the leaf's hook where it must.
+It then casts or quantises the shard, copies it into the host's shared
+staging (``local_stage.Segment``) and signals; the root pushes shard
 ``.j`` once rank j's signal has come. ``collect`` has the root wait the
 pulls and signal each leaf; every process reads its shard back, and the
-group all-gathers the leaves into ``.grad``. A process that fails or is
-cancelled mid-step leaves the group's collectives out of step: the group
-fails with it.
+group all-gathers the leaves into ``.grad``. The round and ``collect``'s
+all-gather run on the FIFO bridge thread (``ps.BridgeJobs``), where
+every other collective of the group is issued too (``push_pull_async``,
+``broadcast_parameters``), so all of them keep the caller's program
+order on every process. A process that fails or is cancelled mid-step
+leaves the group's collectives out of step: the group fails with it.
 
 The JAX module's ``io_callback_supported``, ``_effects_barrier``, bucketed
 fallback and CPU-deadlock warning have no counterpart: hooks always run
@@ -92,7 +95,7 @@ WIRE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
 
 
 class _Cancelled(Exception):
-    """``settle`` stopped the stager's local round."""
+    """``settle`` stopped the window's local round."""
 
 
 class _TapState:
@@ -162,7 +165,7 @@ class _TapState:
                        for _ in range(len(self.buckets or [()]))]
         self.left = [len(b) for b in self.buckets or ()]
         # local group: leaf -> (gradient, ready event) the hooks recorded
-        # and the stager has not reduced yet; the round of the window
+        # and the round has not reduced yet; the round of the window
         self.ready: Dict[int, Tuple[torch.Tensor, object]] = {}
         self.cancelled = False
         self.round = 0
@@ -173,7 +176,8 @@ class _TapState:
         cuda = [p.device for p in self.params if p.is_cuda]
         self.copy_stream = torch.cuda.Stream(cuda[0]) if cuda else None
         self.declare_all(self.params)
-        self.stager = ps.Stager(f"bps_stager_{prefix}")
+        self.stager = (ps.Stager(f"bps_stager_{prefix}") if self.k == 1
+                       else ps.BridgeJobs())
         # A hook lives on its parameter, where the garbage collector does
         # not look: one that held this state would keep it, and every
         # parameter and gradient it lists, alive for the life of the
@@ -191,8 +195,9 @@ class _TapState:
     def _new_timeline() -> dict:
         """One window's host clock readings: pushes enqueued (this
         process's, with their bytes), slices staged into the host's
-        shared staging (local group; with their bytes), the last pull
-        waited, and the seconds of each leg of the local group's path."""
+        shared staging (local group; with their bytes), ``landed`` (the
+        last pull waited; a local group: the all-gather done), and the
+        seconds of each leg of the local group's path."""
         return {"pushes": [], "staged": [], "landed": None,
                 "split_s": dict.fromkeys(
                     ("reduce_scatter", "d2h", "core", "h2d", "all_gather"),
@@ -328,7 +333,8 @@ class _TapState:
 
     def _ready(self, leaves) -> None:
         """Local group: the gradients of ``leaves`` are accumulated; the
-        first of a window starts the stager's round (``_run_local``)."""
+        first of a window queues its round (``_run_local``) on the
+        bridge."""
         with self.cv:
             first = len(self.fired) == len(leaves)
             for i in leaves:
@@ -369,8 +375,8 @@ class _TapState:
             self.push_shard((i, 0))
 
     def _await(self, i: int, deadline: float):
-        """On the stager thread: leaf ``i``'s (gradient, event), once its
-        hook has recorded them."""
+        """In the round: leaf ``i``'s (gradient, event), once its hook
+        has recorded them."""
         with self.cv:
             if not self.cv.wait_for(lambda: i in self.ready or self.cancelled,
                                     max(0.0, deadline - time.monotonic())):
@@ -382,7 +388,7 @@ class _TapState:
             return self.ready.pop(i)
 
     def _run_local(self) -> None:
-        """On the stager thread, once a window (local group of k > 1):
+        """On the bridge thread, once a window (local group of k > 1):
         each unit (a bucket, else a leaf) in backward declaration order,
         the same on every process: wait for its gradients, reduce-scatter
         them over the group (the local mean with ``average``), cast or
@@ -444,11 +450,11 @@ class _TapState:
             self.cv.notify_all()
 
     def push_shard(self, key) -> None:
-        """On the stager thread, once the D2H copy of shard ``key`` (leaf,
-        shard) landed: re-expand the wire to f32 on the host where it is
-        not pushed as it is, and enqueue the push_pull. A failure is
-        recorded against the shard, and ``collect`` raises it after
-        settling the rest."""
+        """On the stager thread (a local group: the bridge, in its round),
+        once the D2H copy of shard ``key`` (leaf, shard) landed:
+        re-expand the wire to f32 on the host where it is not pushed as
+        it is, and enqueue the push_pull. A failure is recorded against
+        the shard, and ``collect`` raises it after settling the rest."""
         push = self.push_bufs[key]
         try:
             wire = self.wire_bufs[key]
@@ -535,7 +541,8 @@ class _TapState:
             timeout = local_stage.timeout_s()
         deadline = time.monotonic() + timeout
         if self.k > 1:
-            self._collect_local(deadline)
+            ps.run_ordered_on(ps._caller_stream(self.params),
+                              self._collect_local, deadline)
             return
         err = None
         for i in range(len(self.params)):
@@ -551,12 +558,12 @@ class _TapState:
         self.join_uploads()
 
     def _collect_local(self, deadline: float) -> None:
-        """``collect`` for a local group: once the stager's round is done
-        (every collective of it issued, every shard pushed), the root
-        waits the pulls leaf by leaf in model order and signals each;
-        every process reads its shard of each leaf back as the root's
-        signal comes, and the group all-gathers the leaves into
-        ``.grad``."""
+        """``collect`` for a local group, on the bridge thread after the
+        window's round (every collective of it issued, every shard
+        pushed): the root waits the pulls leaf by leaf in model order and
+        signals each; every process reads its shard of each leaf back as
+        the root's signal comes, and the group all-gathers the leaves
+        into ``.grad``."""
         split = self.timeline["split_s"]
         root = self.client is not None
         err = None
@@ -586,7 +593,7 @@ class _TapState:
             if err is None:
                 ps.copy_from_host([(self.push_bufs[(i, self.me)],
                                     slices[i])], self.copy_stream)
-        self.timeline["landed"] = t1 = time.perf_counter()
+        t1 = time.perf_counter()
         if err is not None:
             self.settle()
             raise err
@@ -601,9 +608,10 @@ class _TapState:
                 p.grad.copy_(f.view(p.shape))
         if self.copy_stream is not None:
             torch.cuda.current_stream(dev).synchronize()
+        self.timeline["landed"] = t3 = time.perf_counter()
         split["core"] += t1 - t0
         split["h2d"] += t2 - t1
-        split["all_gather"] += time.perf_counter() - t2
+        split["all_gather"] += t3 - t2
 
     def upload(self, i: int) -> None:
         """Queue leaf ``i``'s pulled sum into its ``.grad`` on the copy
@@ -618,7 +626,7 @@ class _TapState:
                 self.copy_stream)
 
     def settle(self) -> None:
-        """Stop the stager's local round, wait out every queued push and
+        """Stop the window's local round, wait out every queued push and
         every handle in flight, swallowing their errors (the caller raises
         its own): the core pulls into the host buffers in place, so none
         may be reused while a handle lives."""
@@ -731,9 +739,10 @@ def make_overlapped_train_step(
     clock readings: ``start``, ``backward`` (``backward()`` returned),
     ``pushes`` ([(enqueued, bytes)]; the root's, with a local group),
     ``staged`` (a local group: [(copied into the host staging, bytes)]),
-    ``landed`` (the last pull waited) and ``split_s`` (a local group: the
-    seconds of its reduce-scatters, D2H copies, root core, H2D copies and
-    all-gather); ``step.close()`` removes the hooks.
+    ``landed`` (the last pull waited; a local group: the all-gather into
+    ``.grad`` done) and ``split_s`` (a local group: the seconds of its
+    reduce-scatters, D2H copies, root core, H2D copies and all-gather);
+    ``step.close()`` removes the hooks.
     """
     st = bps._st()
     if not st.ps:

@@ -27,10 +27,18 @@ slice of each leaf into the host's shared staging
 pushes and pulls the whole leaves under the keys of the one-process step
 (``_tids``), and signals; each rank reads its slice back, and the group
 all-gathers.
+
+A local group's collectives must be issued in one order on every rank,
+and a process has several threads (the caller's, autograd's, the
+bridge). So every collective of the group in PS mode runs on the FIFO
+bridge thread, in the order the caller's program submits it:
+``local_push_pull``, ``local_broadcast``, ``ps_barrier``, the making of
+a segment (``new_segment``) and the hook paths' rounds (``BridgeJobs``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import queue
 import threading
@@ -87,6 +95,18 @@ def submit_ordered(fn, *args, **kwargs):
     handle path). Caller must not already be on the bridge thread."""
     assert not _on_pool_thread(), "async submit from the bridge thread"
     return _ensure_pool().submit(fn, *args, **kwargs)
+
+
+def run_ordered_on(stream, fn, *args):
+    """``_run_ordered`` with ``fn`` run under ``stream`` (the caller's
+    current CUDA stream, ``_caller_stream``; None on the CPU), so that
+    the bridge thread's copies and collectives follow the caller's
+    work."""
+    def run():
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            return fn(*args)
+    return _run_ordered(run)
 
 
 def drain_bridge() -> None:
@@ -253,9 +273,33 @@ def _stage_h2d(host, leaves):
     return out
 
 
+def _exchange(client, prefix, leaves, plan, host, op) -> int:
+    """The core's leg of a tree: ``op(client, tid, array, wire_dtype)``
+    on each leaf's host buffer under the tree's tensor ids (``_tids``),
+    every one enqueued before any wait, then every handle waited, those
+    enqueued before a failed enqueue too (the core writes into the
+    buffers in place). Returns the bytes handed to the core."""
+    tids = _tids(client, prefix, leaves, plan)
+    staged = []
+    try:
+        for tid, h, (wire_dtype, _) in zip(tids, host, plan):
+            staged.append((op(client, tid, _numpy_view(h), wire_dtype), h,
+                           None))
+    finally:
+        _wait_all(client, staged)
+    return sum(h.nbytes for h in host)
+
+
+def _push_pull_op(average: bool, async_mode: bool):
+    def op(client, tid, arr, wire_dtype):
+        return client.push_pull(tid, arr, average=average,
+                                async_mode=async_mode, dtype=wire_dtype)
+    return op
+
+
 def _run_staged(tree, op, prefix, stream):
-    """D2H, ``op(client, tid, array, wire_dtype)`` per leaf, wait all, H2D
-    (the shared body of ps_push_pull and ps_broadcast)."""
+    """D2H, the core's leg (``_exchange``), H2D (the shared body of
+    ps_push_pull and ps_broadcast)."""
     st = bps._st()
     client = st.ps_client
     if client is None:
@@ -269,15 +313,10 @@ def _run_staged(tree, op, prefix, stream):
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
         plan = _wire_plan(leaves, _codec_active(st))
-        tids = _tids(client, prefix, leaves, plan)
         t0 = time.perf_counter()
         host = _stage_d2h(leaves, plan)
         t1 = time.perf_counter()
-        staged = []
-        for tid, h, leaf, (wire_dtype, _) in zip(tids, host, leaves, plan):
-            staged.append((op(client, tid, _numpy_view(h), wire_dtype), h,
-                           leaf))
-        _wait_all(client, staged)
+        _exchange(client, prefix, leaves, plan, host, op)
         t2 = time.perf_counter()
         out = _stage_h2d(host, leaves)
         t3 = time.perf_counter()
@@ -301,13 +340,10 @@ def ps_push_pull(tree, average: bool = True, prefix: str = "grad",
     push queue together. Runs on the FIFO bridge thread so declares keep
     a fleet-consistent order against async ops; the copies run on the
     caller's current stream."""
-    def op(client, tid, arr, wire_dtype):
-        return client.push_pull(tid, arr, average=average,
-                                async_mode=mode, dtype=wire_dtype)
-
     mode = (bps._st().config.enable_async if async_mode is None
             else async_mode)
-    return _run_ordered(_run_staged, tree, op, prefix, _caller_stream(tree))
+    return _run_ordered(_run_staged, tree, _push_pull_op(average, mode),
+                        prefix, _caller_stream(tree))
 
 
 def ps_broadcast(tree, root_rank: int = 0, prefix: str = "param"):
@@ -329,37 +365,38 @@ def local_broadcast(leaves, root_rank: int, prefix: str):
     the FIFO bridge thread, as ``local_push_pull``."""
     st = bps._st()
     k = _h.group_size(st.group)
-    stream = _caller_stream(leaves)
 
     def run():
-        with (torch.cuda.stream(stream) if stream is not None
-              else contextlib.nullcontext()):
-            synced = _h.tree_broadcast(leaves, root=root_rank % k,
-                                       ici_group=st.group)
-            if st.ps_client is not None:
-                synced = ps_broadcast(synced, root_rank=root_rank // k,
-                                      prefix=prefix)
-            if k > 1:
-                synced = _h.tree_broadcast(synced, root=0,
-                                           ici_group=st.group)
-            return synced
+        synced = _h.tree_broadcast(leaves, root=root_rank % k,
+                                   ici_group=st.group)
+        if st.ps_client is not None:
+            synced = ps_broadcast(synced, root_rank=root_rank // k,
+                                  prefix=prefix)
+        if k > 1:
+            synced = _h.tree_broadcast(synced, root=0, ici_group=st.group)
+        return synced
 
-    return _run_ordered(run)
+    return run_ordered_on(_caller_stream(leaves), run)
 
 
 def ps_barrier() -> None:
     """Fleet-wide worker barrier through the scheduler (with a local
-    group: the group, the roots through the scheduler, the group)."""
+    group: the group, the roots through the scheduler, the group, on the
+    bridge thread)."""
     st = bps._st()
     if not st.ps:
         raise RuntimeError("PS mode is not active")
-    local = st.group if _h.group_size(st.group) > 1 else None
-    if local is not None:
-        torch.distributed.barrier(group=local)
-    if st.ps_client is not None:
+    if _h.group_size(st.group) == 1:
         st.ps_client.barrier()
-    if local is not None:
-        torch.distributed.barrier(group=local)
+        return
+
+    def run():
+        torch.distributed.barrier(group=st.group)
+        if st.ps_client is not None:
+            st.ps_client.barrier()
+        torch.distributed.barrier(group=st.group)
+
+    _run_ordered(run)
 
 
 # --- a local group of k > 1 processes ----------------------------------------
@@ -369,12 +406,14 @@ def new_segment(key, specs, n_leaves: int) -> local_stage.Segment:
     item is the prefix), made by every rank of the local group together
     (``local_stage.Segment``). Its file is named by the scheduler's port,
     this host's index, the prefix and the key's crc, so that two trees,
-    two hosts on one machine or two fleets never meet in one name."""
+    two hosts on one machine or two fleets never meet in one name. Made
+    on the bridge thread, as its group's collectives must be."""
     st = bps._st()
     tag = "".join(c if c.isalnum() else "_" for c in key[0])
     crc = zlib.crc32(repr(key).encode())
     name = f"bps_{st.config.root_port}_{bps._hosts()[0]}_{tag}_{crc:08x}"
-    return local_stage.Segment(st.group, name, specs, n_leaves, st.device)
+    return _run_ordered(local_stage.Segment, st.group, name, specs,
+                        n_leaves, st.device)
 
 
 def segment(key, specs, n_leaves: int) -> local_stage.Segment:
@@ -418,30 +457,19 @@ def _local_leg(slices, numels, average: bool, prefix: str, compression,
     what = [f"leaf {i} of {prefix!r}" for i in range(len(wires))]
     pushed = 0
     if st.ps_client is not None:
-        for i in range(len(wires)):
-            for j in range(k):
-                seg.wait_landed(i, j, step, what[i])
-        client = st.ps_client
-        tids = _tids(client, prefix, metas, plan)
-        staged = []
         ok = False
         try:
-            for tid, buf, n, (wire, _) in zip(tids, seg.buffers, numels,
-                                               plan):
-                h = client.push_pull(tid, _numpy_view(buf[:n]),
-                                     average=average,
-                                     async_mode=st.config.enable_async,
-                                     dtype=wire)
-                staged.append((h, buf, None))
-                pushed += buf[:n].nbytes
+            for i in range(len(wires)):
+                for j in range(k):
+                    seg.wait_landed(i, j, step, what[i])
+            pushed = _exchange(
+                st.ps_client, prefix, metas, plan,
+                [buf[:n] for buf, n in zip(seg.buffers, numels)],
+                _push_pull_op(average, st.config.enable_async))
+            ok = True
         finally:
-            # every handle enqueued is waited, a failed enqueue included
-            try:
-                _wait_all(client, staged)
-                ok = len(staged) == len(wires)
-            finally:
-                for i in range(len(wires)):
-                    seg.mark_pulled(i, step, ok)
+            for i in range(len(wires)):
+                seg.mark_pulled(i, step, ok)
     else:
         for i in range(len(wires)):
             seg.wait_pulled(i, step, what[i])
@@ -473,21 +501,18 @@ def local_push_pull(leaves, average: bool, prefix: str, compression):
 
     def run():
         marks = {}
-        with (torch.cuda.stream(stream) if stream is not None
-              else contextlib.nullcontext()):
-            t0 = time.perf_counter()
-            out = _h.tree_sharded_all_reduce(
-                leaves, group=st.group, average=average,
-                leg=lambda s: _local_leg(s, [l.numel() for l in leaves],
-                                         average, prefix, compression,
-                                         marks))
-            if stream is not None:
-                stream.synchronize()
+        t0 = time.perf_counter()
+        out = _h.tree_sharded_all_reduce(
+            leaves, group=st.group, average=average,
+            leg=lambda s: _local_leg(s, [l.numel() for l in leaves],
+                                     average, prefix, compression, marks))
+        if stream is not None:
+            stream.synchronize()
         last_timings.update(reduce_scatter_s=marks["leg"] - t0,
                             all_gather_s=time.perf_counter() - marks["end"])
         return out
 
-    return _run_ordered(run)
+    return run_ordered_on(stream, run)
 
 
 # --- staging for the overlapped steps ----------------------------------------
@@ -613,3 +638,31 @@ class Stager:
                 # method of an owner that is to be freed
                 job = fn = args = None
                 self._jobs.task_done()
+
+
+class BridgeJobs:
+    """``Stager``'s interface over the FIFO bridge thread, for the hook
+    paths of a local group of k > 1: their rounds issue the group's
+    collectives, so they take their place in the bridge's one order
+    (submitted from a hook, that order is the caller's program order on
+    every rank, since the caller is inside backward()). ``join`` raises
+    the first error of the jobs submitted since the last join; on the
+    bridge thread it may wait only for jobs submitted before the one
+    running."""
+
+    def __init__(self):
+        self._jobs: collections.deque = collections.deque()
+
+    def submit(self, fn, *args) -> None:
+        self._jobs.append(submit_ordered(fn, *args))
+
+    def join(self) -> None:
+        err = None
+        while self._jobs:
+            e = self._jobs.popleft().exception()
+            err = err or e
+        if err is not None:
+            raise err
+
+    def close(self) -> None:
+        """Nothing to stop: the bridge outlives its jobs."""

@@ -115,7 +115,8 @@ Phases, each of which raises on failure:
    wire, the hook-driven buckets and the DistributedOptimizer loop, then
    an evaluation forward, held to one process that combines the four
    ranks' gradients in the fleet's order: equal to the bit on the f32
-   wire.
+   wire. The kernel phase checks and times the kernels at a rank's
+   shape ([2, 512, 12, 64]) too.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -380,6 +381,8 @@ CASES = [
     ("tp_gpt2m", 4, 1024, 1024, 8, 64, "bfloat16", True, None),
     # GPT-2 medium's pipeline stages (phase 10 (b)): one microbatch row
     ("pp_gpt2m", 1, 1024, 1024, 16, 64, "bfloat16", True, None),
+    # GPT-2 small on each rank of phase 11's fleet: its 2 rows of the 8
+    ("gpt2_local_ps", 2, SEQ, SEQ, 12, 64, "bfloat16", True, None),
     # f32: the FMA kernels
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
@@ -397,7 +400,7 @@ CASES = [
 ]
 # the main paths' shapes, timed beside their plain versions and SDPA
 TIMED = ("gpt2", "bert_large", "llama1b", "ulysses_8192", "tp_gpt2m",
-         "pp_gpt2m")
+         "pp_gpt2m", "gpt2_local_ps")
 
 
 def kernel_phase():
@@ -3171,10 +3174,20 @@ def local_ps_worker(out_dir, port):
     import torch.distributed as dist
 
     import byteps_tpu_torch as bps
+    from byteps_tpu_torch import local_stage
     from byteps_tpu_torch.parallel import _collectives as C
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
     torch.cuda.set_device(0)
+    # the directories this process's segments were made in (local rank 0
+    # makes them), which the main process lists for files left behind
+    made_in, choose = set(), local_stage.stage_dir
+
+    def stage_dir(nbytes):
+        where = choose(nbytes)
+        made_in.add(where)
+        return where
+    local_stage.stage_dir = stage_dir
     local = int(os.environ["BYTEPS_LOCAL_RANK"])
     host = int(os.environ["DMLC_WORKER_ID"])
     dist.init_process_group(
@@ -3199,20 +3212,22 @@ def local_ps_worker(out_dir, port):
             model, step = _ps_path(label, lm)
             out = {"losses": [], "step_ms": [], "launches": dict.fromkeys(
                 fa.LAUNCHES, 0), "steps": []}
-            for _ in range(LOCAL_STEPS):
-                torch.cuda.synchronize()
-                C.reset_bytes()
-                fa.reset_launches()
-                t0 = time.perf_counter()
-                loss = step(model, tokens)
-                torch.cuda.synchronize()
-                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-                out["losses"].append(loss.item())
-                for k, v in fa.LAUNCHES.items():
-                    out["launches"][k] += v
-                out["steps"].append(dict(_local_step_record(label, step),
-                                         gloo_staged_bytes=C.BYTES[
-                                             "staged"]))
+            with _flash_shapes() as shapes:
+                for _ in range(LOCAL_STEPS):
+                    torch.cuda.synchronize()
+                    C.reset_bytes()
+                    fa.reset_launches()
+                    t0 = time.perf_counter()
+                    loss = step(model, tokens)
+                    torch.cuda.synchronize()
+                    out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                    out["losses"].append(loss.item())
+                    for k, v in fa.LAUNCHES.items():
+                        out["launches"][k] += v
+                    out["steps"].append(dict(
+                        _local_step_record(label, step),
+                        gloo_staged_bytes=C.BYTES["staged"]))
+            out["flash_shapes"] = sorted(shapes)
             out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
             diff = max((v.float() - ref[k].to(v.device).float()).abs()
                        .max().item() for k, v in model.state_dict().items())
@@ -3223,10 +3238,11 @@ def local_ps_worker(out_dir, port):
             out["params_max_abs_diff"], out["params_max_rel_diff"] = diff, rel
             if label == "distributed_optimizer":
                 fa.reset_launches()
-                with torch.no_grad():
+                with torch.no_grad(), _flash_shapes() as shapes:
                     logits = model(tokens)
                 torch.cuda.synchronize()
                 out["eval_launches"] = dict(fa.LAUNCHES)
+                out["eval_flash_shapes"] = sorted(shapes)
                 out["eval_finite"] = bool(torch.isfinite(logits).all())
                 del logits
             if hasattr(step, "close"):
@@ -3238,6 +3254,7 @@ def local_ps_worker(out_dir, port):
             log(f"local ps host {host} rank {local}: {label} losses "
                 f"{out['losses']} ms {[round(x) for x in out['step_ms']]}")
         rec["seconds"] = time.perf_counter() - t_start
+        rec["stage_dirs"] = sorted(made_in)
     finally:
         bps.shutdown()
         dist.destroy_process_group()
@@ -3332,15 +3349,19 @@ def local_ps_phase():
       bound of its reference losses;
     - #1, #3 and #4 launched 12 times a step on every rank and path, #2
       never in training, 12 times (alone) in the evaluation forward;
+    - every rank's flash calls, in training and in the evaluation
+      forward, have the one q shape [2, 512, 12, 64] of the kernel
+      phase's ``gpt2_local_ps`` case, which holds the kernels to their
+      plain versions there;
     - every step: each rank copies into the host's staging half of each
       f32 gradient (ceil(n / 2) elements a leaf; the bf16 wire half of
       that), and each root pushes one gradient's bytes (whole leaves on
       the plain path: 4 n; the shards elsewhere, 4 x 2 ceil(n / 2)), the
       others none;
-    - no staging file of the fleet is left in its directory."""
+    - each host's root made its segments in a directory it recorded, and
+      no staging file of the fleet is left in any of them."""
     import shutil
 
-    from byteps_tpu_torch import local_stage
     df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
                         text=True).stdout.strip()
     log("phase 11: df /dev/shm\n" + df)
@@ -3353,11 +3374,11 @@ def local_ps_phase():
         fleet_s = time.perf_counter() - t0 - ref_s
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    stage = local_stage.stage_dir(0)
-    left = sorted(n for n in os.listdir(stage)
+    stage = sorted({d for rec in recs.values() for d in rec["stage_dirs"]})
+    left = sorted(os.path.join(d, n) for d in stage for n in os.listdir(d)
                   if n.startswith(f"bps_{port}_"))
-    gates = _local_gates(recs, ref_losses, numels, left)
-    out = {"df_dev_shm": df, "stage_dir": stage, "reference_s": ref_s,
+    gates = _local_gates(recs, ref_losses, numels, stage, left)
+    out = {"df_dev_shm": df, "stage_dirs": stage, "reference_s": ref_s,
            "fleet_s": fleet_s, "reference_losses": ref_losses,
            "gates": gates, "ranks": recs}
     log("phase 11 (two hosts of two ranks, PS):", json.dumps(
@@ -3365,12 +3386,18 @@ def local_ps_phase():
     return out
 
 
-def _local_gates(recs, ref_losses, numels, left):
+def _local_gates(recs, ref_losses, numels, stage, left):
     """Phase 11's gates (``local_ps_phase``); returns what they read."""
     half = sum(-(-n // LOCAL_SIZE) for n in numels)
+    case = next(c for c in CASES if c[0] == "gpt2_local_ps")
+    shape = [[case[1], case[2], case[4], case[5]]]  # b, s_q, h, d
     fails, read = [], {}
+    roots = [r for r, rec in recs.items() if rec["stage_dirs"]]
+    if sorted(roots) != [h * LOCAL_SIZE for h in range(LOCAL_HOSTS)]:
+        fails.append(f"ranks that recorded a staging directory: {roots}, "
+                     "expected each host's root")
     if left:
-        fails.append(f"staging files left: {left}")
+        fails.append(f"staging files left in {stage}: {left}")
     for r, rec in sorted(recs.items()):
         want = (r, LOCAL_HOSTS * LOCAL_SIZE, LOCAL_HOSTS,
                 rec["local_rank"] == 0)
@@ -3383,6 +3410,9 @@ def _local_gates(recs, ref_losses, numels, left):
             try:
                 _check_launches(f"phase 11 rank {r} {label}",
                                 out["launches"], GPT2.layers, LOCAL_STEPS)
+                if out["flash_shapes"] != shape:
+                    raise AssertionError(f"flash shapes "
+                                         f"{out['flash_shapes']} != {shape}")
                 if wire == "float32":
                     if out["losses"] != ref_losses[r]:
                         raise AssertionError(
@@ -3414,6 +3444,9 @@ def _local_gates(recs, ref_losses, numels, left):
         try:
             _check_eval_launches(f"phase 11 rank {r}", ev["eval_launches"],
                                  GPT2.layers)
+            if ev["eval_flash_shapes"] != shape:
+                raise AssertionError(f"evaluation flash shapes "
+                                     f"{ev['eval_flash_shapes']} != {shape}")
             if not ev["eval_finite"]:
                 raise AssertionError("non-finite evaluation logits")
         except AssertionError as e:

@@ -6,8 +6,9 @@ Each world runs ``local_ps_worker`` on the inputs the test process saved
 the local root: ``ffi.Worker.start`` gives it a ``MirrorServer``, the
 other rank must never call it. The ranks train the narrow
 ``TransformerLM`` on their halves of each batch through every PS path,
-and try ``push_pull``, ``broadcast_parameters``, checkpoint restore and
-the BatchNorm step (``stateful.py``) across the group. It imports no JAX.
+and try ``push_pull``, ``broadcast_parameters``, checkpoint restore,
+``push_pull_async`` beside a hooked step and the BatchNorm step
+(``stateful.py``) across the group. It imports no JAX.
 """
 
 import os
@@ -233,6 +234,48 @@ def _collective_checks(rank, client):
     return out
 
 
+def _concurrent(inputs, rank):
+    """``overlap_f32`` and ``distributed_optimizer`` again, each step with
+    a ``push_pull_async`` of a metric in flight while the step's round
+    issues the group's reduce-scatters: started before the step (after
+    backward for the optimizer) behind a bridge job that holds rank 1's
+    bridge 0.3 s and rank 0's not at all, and waited after the step.
+    Returns each path's metric results and parameters."""
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import ps
+    from byteps_tpu_torch.overlap import make_overlapped_train_step
+    half = inputs["batches"][0].shape[0] // 2
+    out = {}
+    for path in ("overlap_f32", "distributed_optimizer"):
+        model = _model(inputs["params"])
+        opt = torch.optim.SGD(model.parameters(), lr=LR)
+        if path == "overlap_f32":
+            step = make_overlapped_train_step(_loss, opt, prefix="concurrent")
+            close = step.close
+        else:
+            dopt = bps.DistributedOptimizer(opt)
+            close = dopt._taps.close
+        metrics = []
+        for t, b in enumerate(inputs["batches"]):
+            tokens = torch.as_tensor(b[rank * half:(rank + 1) * half])
+            metric = torch.full((5,), float(rank + t))
+            ps.submit_ordered(time.sleep, 0.3 * rank)
+            if path == "overlap_f32":
+                h = bps.push_pull_async(metric, name="metric")
+                step(model, tokens)
+            else:
+                dopt.zero_grad()
+                _loss(model, tokens).backward()
+                h = bps.push_pull_async(metric, name="metric")
+                dopt.step()
+            metrics.append(bps.synchronize(h).tolist())
+        close()
+        out[path] = {"metrics": metrics,
+                     "state": {k: v.detach().numpy().copy()
+                               for k, v in model.state_dict().items()}}
+    return out
+
+
 def _stateful():
     """Two steps of make_stateful_train_step on ResNet-18 at 4 filters,
     this rank's two 32 x 32 images a step; (losses, state)."""
@@ -296,6 +339,7 @@ def local_ps_worker(rank, world, port, out_dir):
             out["paths"] = {p: _run_path(p, inputs, rank, root)
                             for p in PATHS}
             out["checks"] = _collective_checks(rank, root)
+            out["concurrent"] = _concurrent(inputs, rank)
             out["stateful_ps"] = _stateful()
             bps.shutdown()
             os.environ["BYTEPS_PS_MODE"] = "collective"

@@ -31,8 +31,9 @@ PS step's (``ps._tids``, whole leaves).
 The world also checks the roles (one client a host, rank and size by the
 Horovod contract), the bytes each rank stages and the root pushes,
 ``push_pull``, ``broadcast_parameters`` from local rank 1, checkpoint
-restore, the async step's refusal and the BatchNorm step (equal to the
-bit in PS mode and collective mode). Two planted faults must fail the
+restore, the async step's refusal, ``push_pull_async`` beside a hooked
+step (one order of the group's collectives on every rank) and the
+BatchNorm step (equal to the bit in PS mode and collective mode). Two planted faults must fail the
 parity, a rank that dies mid-step must make the survivor's wait name the
 leaf and the rank, and no staging file may outlive the world. The
 ``-m ps`` test runs two hosts of two ranks each through the port's
@@ -301,6 +302,22 @@ def test_local_group_collectives(world):
                                   "b": [100.0, 101.0, 102.0, 103.0]}
         assert c["restored"] == ((torch.arange(6.0) + 7).tolist(), 1)
         assert c["fleet_barriers"] == (1 if r == 0 else 0)
+
+
+def test_push_pull_async_beside_a_hooked_step(world):
+    """A ``push_pull_async`` in flight while a hooked step's round issues
+    the group's reduce-scatters, rank 1's bridge held back 0.3 s: both
+    run on the bridge thread in the caller's order on every rank, so the
+    metric is the ranks' mean and each path equals its run without the
+    metric, to the bit (gloo would pair one rank's metric with the other
+    rank's gradient otherwise, and hang or sum the wrong data)."""
+    _, ranks = world
+    for rec in ranks:
+        for path, got in rec["concurrent"].items():
+            assert got["metrics"] == [[t + 0.5] * 5 for t in range(STEPS)]
+            for k, v in got["state"].items():
+                np.testing.assert_array_equal(
+                    v, rec["paths"][path]["state"][k], err_msg=f"{path} {k}")
 
 
 def test_stateful_ps_step_equals_collective_with_a_local_group(world):
