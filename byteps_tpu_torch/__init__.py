@@ -26,7 +26,9 @@ monitor) is its own copy.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import io
 import threading
 from typing import Any, Optional
 
@@ -62,6 +64,8 @@ class _State:
     # (the root client's worker_rank() and num_workers() at init)
     host_rank: int = 0
     num_hosts: int = 1
+    # name -> C-core codec string that ``declare`` set for it ("" off)
+    codecs: dict = dataclasses.field(default_factory=dict)
 
 
 _state: Optional[_State] = None
@@ -350,38 +354,55 @@ def synchronize(handle: Handle):
     return handle.value
 
 
-def _write_back(tensor: torch.Tensor, average: bool, name: Optional[str]):
-    out = push_pull(tensor, average=average, name=name)
+def _write_back(tensor: torch.Tensor, average: bool, name: Optional[str],
+                compression: Compressor):
+    out = push_pull(tensor, average=average, name=name,
+                    compression=compression)
     with torch.no_grad():
         tensor.copy_(out)
     return tensor
 
 
 def push_pull_async_inplace_(tensor: torch.Tensor, average: bool = True,
-                             name: Optional[str] = None) -> Handle:
+                             name: Optional[str] = None,
+                             compression: Compressor = Compression.none
+                             ) -> Handle:
     """Non-blocking push_pull of one tensor whose result is written into
     ``tensor``; ``synchronize`` of the handle waits for that and returns
-    ``tensor`` (reference: byteps.torch push_pull_async_inplace_)."""
+    ``tensor`` (reference: byteps.torch push_pull_async_inplace_).
+    ``compression`` as in ``push_pull``."""
     st = _st()
     if st.ps:
         from byteps_tpu_torch import ps as _ps
-        return Handle(_ps.submit_ordered(_write_back, tensor, average, name))
-    return Handle(_write_back(tensor, average, name))
+        return Handle(_ps.submit_ordered(_write_back, tensor, average, name,
+                                         compression))
+    return Handle(_write_back(tensor, average, name, compression))
 
 
 def push_pull_inplace_(tensor: torch.Tensor, average: bool = True,
-                       name: Optional[str] = None) -> torch.Tensor:
+                       name: Optional[str] = None,
+                       compression: Compressor = Compression.none
+                       ) -> torch.Tensor:
     """Blocking push_pull of one tensor, written into ``tensor``, which is
     returned (reference: byteps.torch push_pull_inplace_)."""
-    return synchronize(push_pull_async_inplace_(tensor, average, name))
+    return synchronize(push_pull_async_inplace_(tensor, average, name,
+                                                compression))
 
 
 # --- declare / broadcast ----------------------------------------------------
 
-def declare(name: str, tensor: torch.Tensor) -> None:
+def declare(name: str, tensor: torch.Tensor,
+            compression_config: Optional[str] = None) -> None:
     """Pre-register ``tensor`` under ``name`` (reference: byteps.torch
-    declare): ``declare_tensor`` with its shape and dtype."""
+    declare): ``declare_tensor`` with its shape and dtype.
+    ``compression_config`` is the C-core codec of the tensors that later
+    push_pull calls under ``name`` declare in PS mode, in place of the
+    fleet default (``BYTEPS_COMPRESSOR``): a config string such as
+    ``"type=onebit;ef=vanilla"``, or ``""`` to turn the codec off for
+    this name; None leaves the default."""
     declare_tensor(name, tensor.shape, tensor.dtype)
+    if compression_config is not None:
+        _st().codecs[name] = compression_config
 
 
 def declare_tensor(name: str, shape, dtype) -> None:
@@ -421,62 +442,138 @@ def broadcast_parameters(params, root_rank: int = 0,
     return params
 
 
+def _broadcast_blob(payload: bytes, root_rank: int, name: str) -> bytes:
+    """``root_rank``'s ``payload`` on every rank: its length, then its
+    bytes as a uint8 tensor, each through ``broadcast_parameters``."""
+    dev = _st().device
+    n = torch.tensor([len(payload)], dtype=torch.int64, device=dev)
+    broadcast_parameters([n], root_rank=root_rank, name=f"{name}.len")
+    buf = torch.zeros(int(n.item()), dtype=torch.uint8, device=dev)
+    if rank() == root_rank:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    broadcast_parameters([buf], root_rank=root_rank, name=f"{name}.blob")
+    return buf.cpu().numpy().tobytes()
+
+
+def _pickled(obj) -> bytes:
+    out = io.BytesIO()
+    torch.save(obj, out)
+    return out.getvalue()
+
+
+def _unpickled(data: bytes):
+    return torch.load(io.BytesIO(data), weights_only=False)
+
+
+def _materialize_state(optimizer: torch.optim.Optimizer) -> None:
+    """Give ``optimizer`` its state (momentum buffers, moments, step
+    counts exist only after a step) with one step of its own class on
+    zero gradients, as the reference does, and then put the parameters
+    and their ``.grad`` back: a decoupled weight decay (AdamW) moves the
+    parameters even on a zero gradient. The step is the wrapped class's
+    own, so a ``DistributedOptimizer`` does not communicate, and a
+    learning-rate scheduler's wrapper is not counted."""
+    params = [p for g in optimizer.param_groups for p in g["params"]
+              if p.requires_grad]
+    kept = [(p.detach().clone(), p.grad) for p in params]
+    own = (super(_Distributed, optimizer).step
+           if isinstance(optimizer, _Distributed)
+           else type(optimizer).step.__get__(optimizer))
+    try:
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        own()
+    finally:
+        with torch.no_grad():
+            for p, (value, grad) in zip(params, kept):
+                p.copy_(value)
+                p.grad = grad
+
+
 def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                               root_rank: int = 0, name: str = "opt_state"):
-    """Overwrite the tensors of ``optimizer``'s state in place with
-    ``root_rank``'s, in one broadcast_parameters call (one batched host
-    round trip in PS mode). Non-tensor entries are left as they are; pass
-    a distinct ``name`` when broadcasting several optimizer states."""
-    tensors = [v for _, st in sorted(optimizer.state_dict()["state"].items())
-               for _, v in sorted(st.items()) if torch.is_tensor(v)]
+    """Overwrite ``optimizer``'s state and hyperparameters in place with
+    ``root_rank``'s (reference: byteps.torch broadcast_optimizer_state).
+
+    A rank whose optimizer holds no state yet first makes it with a
+    zero-gradient step that leaves the parameters as they were
+    (``_materialize_state``). Every rank then holds its (parameter,
+    key, shape) set of state tensors against the root's, and if any
+    rank's differs, every rank raises. The state tensors come from the
+    root in one ``broadcast_parameters`` call (one batched host round
+    trip in PS mode); the non-tensor entries and the ``param_groups``
+    (the learning rate among them) come from the root in a pickled blob.
+    Pass a distinct ``name`` when broadcasting several optimizers'
+    states."""
+    if not optimizer.state_dict()["state"]:
+        _materialize_state(optimizer)
+    state = optimizer.state_dict()["state"]
+    entries = sorted((pid, key) for pid, st in state.items() for key in st)
+    tensors = [(pid, key) for pid, key in entries
+               if torch.is_tensor(state[pid][key])
+               and state[pid][key].numel() > 0]
+    mine = [(pid, key, tuple(state[pid][key].shape)) for pid, key in tensors]
+    root = _unpickled(_broadcast_blob(_pickled(mine), root_rank,
+                                      f"{name}.keys"))
+    dev = _st().device
+    # how many ranks differ: a sum every rank reads, so all of them raise
+    # or none; exact, so never through a lossy codec
+    flag = torch.tensor([float(root != mine)], device=dev)
+    declare(f"{name}.keys_differ", flag, compression_config="")
+    differ = push_pull(flag, average=False, name=f"{name}.keys_differ")
+    if int(differ.item()):
+        raise RuntimeError(
+            f"broadcast_optimizer_state: the optimizer state of "
+            f"{int(differ.item())} rank(s) differs from root rank "
+            f"{root_rank}'s (this rank: {len(mine)} state tensors against "
+            f"the root's {len(root)}{', equal' if root == mine else ''}); "
+            "give every rank the same optimizer and parameters")
     if tensors:
-        broadcast_parameters(tensors, root_rank=root_rank, name=name)
+        live = [state[pid][key] for pid, key in tensors]
+        moved = [t.to(dev) for t in live]
+        broadcast_parameters(moved, root_rank=root_rank, name=name)
+        with torch.no_grad():
+            for t, m in zip(live, moved):
+                if m is not t:
+                    t.copy_(m)
+    others = {(pid, key): state[pid][key] for pid, key in entries
+              if not torch.is_tensor(state[pid][key])
+              or state[pid][key].numel() == 0}
+    groups = [{k: v for k, v in g.items() if k != "params"}
+              for g in optimizer.param_groups]
+    got = _unpickled(_broadcast_blob(
+        _pickled({"others": others, "param_groups": groups}), root_rank,
+        f"{name}.others"))
+    for (pid, key), value in got["others"].items():
+        state[pid][key] = value
+    for group, theirs in zip(optimizer.param_groups, got["param_groups"]):
+        group.update(theirs)
     return optimizer
 
 
 # --- DistributedOptimizer ---------------------------------------------------
 
-class DistributedOptimizer:
-    """Wrap a ``torch.optim.Optimizer`` so that the gradients are summed
-    (mean with ``average``) across workers before its ``step()``
-    (reference: byteps.torch DistributedOptimizer). Other attributes pass
-    through to the wrapped optimizer.
-
-    PS mode: a ``register_post_accumulate_grad_hook`` on each parameter
-    starts its gradient's D2H copy and push the moment backward has
-    accumulated it, as in ``overlap.py`` (the same ``_TapState``, prefix
-    ``"grad"``), so communication overlaps the rest of backward;
-    ``step()`` waits for the pulls, writes the sums into ``.grad`` and
-    steps. ``compression`` (``bf16``/``fp16``) casts each gradient on the
-    card, and the servers sum that dtype, as ``push_pull`` has them do
-    (f32 when a codec is configured, as ``ps._wire_plan`` declares). Every
-    parameter must get a gradient in each backward pass. ``timings`` holds
-    the last step's pushes and the time the last pull was waited (host
-    clock).
-
-    Collective mode: ``step()`` push_pulls every ``.grad`` first (the JAX
-    DistributedOptimizer leaves overlap there to the compiler).
-
-    ``backward_passes_per_step`` > 1 is the reference's accumulation
-    contract: gradients accumulate in ``.grad`` over that many backward
-    passes and are communicated once (PS mode: from the hook of the last
-    pass); dividing by the count is the caller's, as in the reference.
-    """
+class _Distributed:
+    """The methods ``DistributedOptimizer`` puts in front of the wrapped
+    optimizer's class."""
 
     _WIRES = {"none": "float32", "bf16": "bfloat16", "fp16": "float16"}
 
-    def __init__(self, optimizer: torch.optim.Optimizer, *,
-                 average: bool = True,
-                 compression: Compressor = Compression.none,
-                 backward_passes_per_step: int = 1):
-        if backward_passes_per_step < 1:
-            raise ValueError("backward_passes_per_step must be >= 1")
-        self.optimizer = optimizer
+    def _bps_setup(self, named_parameters, compression: Compressor,
+                   backward_passes_per_step: int, average: bool) -> None:
+        params = [p for g in self.param_groups for p in g["params"]]
+        named = list(named_parameters or ())
+        repeated = sorted(n for n, c in collections.Counter(
+            n for n, _ in named).items() if c > 1)
+        if repeated:
+            raise ValueError(
+                "DistributedOptimizer needs unique parameter names (pass "
+                f"model.named_parameters()); repeated: {repeated}")
         self.average = average
         self.compression = compression
         self.backward_passes_per_step = backward_passes_per_step
-        self._taps = None
         self.timings: dict = {}
+        self._taps = None
         st = _st()
         if st.ps:
             if compression.name not in self._WIRES:
@@ -485,14 +582,11 @@ class DistributedOptimizer:
                     f"wire; use one of {sorted(self._WIRES)}")
             from byteps_tpu_torch.overlap import _TapState
             self._taps = _TapState(
-                st.ps_client, [p for g in optimizer.param_groups
-                         for p in g["params"]], "grad", average, None,
+                st.ps_client, params, "grad", average, None,
                 wire_dtype=self._WIRES[compression.name],
                 backward_passes_per_step=backward_passes_per_step,
                 sum_wire=True)
-
-    def __getattr__(self, attr):
-        return getattr(self.__dict__["optimizer"], attr)
+            self._taps.names.update((id(p), n) for n, p in named)
 
     def synchronize(self) -> None:
         """Replace every ``.grad`` with its sum across workers (PS mode:
@@ -504,8 +598,8 @@ class DistributedOptimizer:
             finally:
                 self._taps.reset_window()
             return
-        params = [p for g in self.optimizer.param_groups
-                  for p in g["params"] if p.grad is not None]
+        params = [p for g in self.param_groups for p in g["params"]
+                  if p.grad is not None]
         if not params:
             return
         grads = push_pull([p.grad for p in params], average=self.average,
@@ -515,7 +609,7 @@ class DistributedOptimizer:
 
     def step(self, closure=None):
         self.synchronize()
-        return self.optimizer.step(closure)
+        return super().step(closure)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         if self._taps is not None:
@@ -523,4 +617,61 @@ class DistributedOptimizer:
             # and start the next window clean
             self._taps.settle()
             self._taps.reset_window()
-        self.optimizer.zero_grad(set_to_none=set_to_none)
+        super().zero_grad(set_to_none=set_to_none)
+
+
+def DistributedOptimizer(optimizer: torch.optim.Optimizer,
+                         named_parameters=None,
+                         compression: Compressor = Compression.none,
+                         backward_passes_per_step: int = 1, *,
+                         average: bool = True) -> torch.optim.Optimizer:
+    """Wrap a ``torch.optim.Optimizer`` so that the gradients are summed
+    (mean with ``average``) across workers before its ``step()``
+    (reference: byteps.torch DistributedOptimizer).
+
+    Returns an instance of a class built here that subclasses
+    ``optimizer``'s class, as the reference does, so that ``isinstance``
+    checks and learning-rate schedulers work with it. The instance takes
+    over ``optimizer``'s attributes (its ``param_groups``, ``defaults``
+    and ``state``, shared with ``optimizer``, so a state loaded before
+    wrapping is kept) without running the class's ``__init__`` again,
+    which may need arguments that only the caller knows. Methods that a
+    learning-rate scheduler patched onto ``optimizer`` itself are not
+    taken over.
+
+    ``named_parameters`` (``model.named_parameters()``) names the
+    parameters in errors; the names must be unique.
+
+    PS mode: a ``register_post_accumulate_grad_hook`` on each parameter
+    starts its gradient's D2H copy and push the moment backward has
+    accumulated it, as in ``overlap.py`` (the same ``_TapState``, prefix
+    ``"grad"``), so communication overlaps the rest of backward;
+    ``step()`` waits for the pulls, writes the sums into ``.grad`` and
+    steps. ``compression`` (``bf16``/``fp16``) casts each gradient on the
+    card, and the servers sum that dtype, as ``push_pull`` has them do
+    (f32 under the fleet's codec, ``BYTEPS_COMPRESSOR``, as
+    ``ps._wire_plan`` declares). Every parameter must get a gradient in
+    each backward pass. ``timings`` holds the last step's pushes and the
+    time the last pull was waited (host clock).
+
+    Collective mode: ``step()`` push_pulls every ``.grad`` first (the JAX
+    DistributedOptimizer leaves overlap there to the compiler).
+
+    ``backward_passes_per_step`` > 1 is the reference's accumulation
+    contract: gradients accumulate in ``.grad`` over that many backward
+    passes and are communicated once (PS mode: from the hook of the last
+    pass). Dividing by the count is the caller's, as in the JAX
+    DistributedOptimizer; the reference plugin divides in its hook.
+    """
+    if backward_passes_per_step < 1:
+        raise ValueError("backward_passes_per_step must be >= 1")
+    if isinstance(optimizer, _Distributed):
+        raise ValueError("the optimizer is a DistributedOptimizer already")
+    base = type(optimizer)
+    cls = type(base.__name__, (_Distributed, base), {})
+    dopt = cls.__new__(cls)
+    dopt.__dict__.update({k: v for k, v in vars(optimizer).items()
+                          if not callable(getattr(base, k, None))})
+    dopt._bps_setup(named_parameters, compression,
+                    backward_passes_per_step, average)
+    return dopt

@@ -208,7 +208,7 @@ def make_bucketed_overlap_step(
                 idx = buckets[b]
                 state.to_host([state.wire(i) for i in idx])
                 pipe.push_bucket(b, [state.tids[(i, 0)] for i in idx],
-                                 [state.push_bufs[(i, 0)] for i in idx],
+                                 [state.expand((i, 0)) for i in idx],
                                  idx, average)
                 now = time.perf_counter()
                 state.timeline["pushes"] += [

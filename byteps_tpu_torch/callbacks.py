@@ -53,8 +53,9 @@ class BroadcastGlobalVariablesCallback(Callback):
     """At train begin, overwrite every worker's weights with
     ``root_rank``'s: ``state["model"]``'s ``state_dict()`` (or
     ``state["params"]``, a tensor, list or dict of tensors), then
-    ``state["optimizer"]``'s state through ``broadcast_optimizer_state``.
-    Everything is overwritten in place."""
+    ``state["optimizer"]``'s state and hyperparameters through
+    ``broadcast_optimizer_state`` (a rank that has not stepped yet gets
+    its state first). Everything is overwritten in place."""
 
     def __init__(self, root_rank: int = 0):
         self.root_rank = root_rank

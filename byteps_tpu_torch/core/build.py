@@ -124,10 +124,28 @@ def build(force: bool = False, verbose: bool = True,
     # with "undefined symbol: shm_open" on older hosts.
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     tmp_path = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [cxx, *flags, *srcs, "-o", tmp_path, "-lrt"]
-    if verbose:
-        print("[byteps_tpu_torch.core.build]", " ".join(cmd))
-    subprocess.run(cmd, check=True)
+    # one compiler process a source, all started together (the longest
+    # source sets the build's time), then one link
+    objdir = tempfile.mkdtemp(dir=os.path.dirname(lib_path))
+    try:
+        compile_flags = [f for f in flags
+                         if f != "-shared" and not f.startswith("-Wl,")]
+        objs = [os.path.join(objdir, os.path.basename(src) + ".o")
+                for src in srcs]
+        cmds = [[cxx, *compile_flags, "-c", src, "-o", obj]
+                for src, obj in zip(srcs, objs)]
+        cmds.append([cxx, *flags, *objs, "-o", tmp_path, "-lrt"])
+        if verbose:
+            for cmd in cmds:
+                print("[byteps_tpu_torch.core.build]", " ".join(cmd))
+        compiles = [subprocess.Popen(cmd) for cmd in cmds[:-1]]
+        failed = [cmd[-3] for cmd, p in zip(cmds, compiles) if p.wait()]
+        if failed:
+            raise subprocess.CalledProcessError(
+                1, f"{cxx} -c {' '.join(failed)}")
+        subprocess.run(cmds[-1], check=True)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     install(tmp_path, lib_path, key)
     return lib_path
 

@@ -449,24 +449,30 @@ class _TapState:
                                             self.push_bufs[key].nbytes))
             self.cv.notify_all()
 
+    def expand(self, key) -> torch.Tensor:
+        """Shard ``key``'s (leaf, shard) buffer that the core sums, once
+        its D2H copy landed: the wire re-expanded to f32 on the host where
+        it is not pushed as it is."""
+        push = self.push_bufs[key]
+        wire = self.wire_bufs[key]
+        if self.wire_dtype == "int8":
+            q, scales = wire
+            block = self.blocks[key[0]]
+            torch.mul(q.view(-1, block), scales.view(-1, 1),
+                      out=push.view(-1, block))
+        elif wire[0] is not push:
+            push.copy_(wire[0])
+        return push
+
     def push_shard(self, key) -> None:
         """On the stager thread (a local group: the bridge, in its round),
         once the D2H copy of shard ``key`` (leaf, shard) landed:
-        re-expand the wire to f32 on the host where it is not pushed as
-        it is, and enqueue the push_pull. A failure is recorded against
-        the shard, and ``collect`` raises it after settling the rest."""
-        push = self.push_bufs[key]
+        ``expand`` it and enqueue the push_pull. A failure is recorded
+        against the shard, and ``collect`` raises it after settling the
+        rest."""
         try:
-            wire = self.wire_bufs[key]
-            if self.wire_dtype == "int8":
-                q, scales = wire
-                block = self.blocks[key[0]]
-                torch.mul(q.view(-1, block), scales.view(-1, 1),
-                          out=push.view(-1, block))
-            elif wire[0] is not push:
-                push.copy_(wire[0])
-            rec = (ps.push_host(self.client, self.tids[key], push,
-                                self.average), None)
+            rec = (ps.push_host(self.client, self.tids[key],
+                                self.expand(key), self.average), None)
         except Exception as e:  # noqa: BLE001 (raised by collect)
             rec = (None, e)
         self._record(key, rec)

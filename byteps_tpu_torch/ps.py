@@ -187,37 +187,48 @@ def _codec_active(st) -> bool:
                 or os.environ.get("BYTEPS_COMPRESSOR", ""))
 
 
-def _wire_plan(leaves, codec: bool):
+def _wire_plan(leaves, codec: bool, override: Optional[str] = None):
     """Per-leaf (declare dtype, compression override):
 
-    - float32 + codec: inherit the default codec (None).
+    - float32 + codec: the codec (None: inherit the default).
     - bfloat16/float16 + codec: declare FLOAT32 and upcast the staged
       host buffer; the C codec takes the wire from there.
     - non-float leaves: declare with compression="" (quantising integers
       is meaningless and the core would reject them).
+
+    ``override`` is the codec ``declare(name, ..., compression_config=)``
+    set for the tree's name: it replaces the fleet default (``codec``),
+    and ``""`` turns the codec off.
     """
+    if override is not None:
+        codec = bool(override)
     plan = []
     for leaf in leaves:
         name = _dtype_name(leaf)
-        if not codec or name == "float32":
-            plan.append((name, None))
-        elif name in ("bfloat16", "float16"):
-            plan.append(("float32", None))
+        if not codec:
+            plan.append((name, override))
+        elif name in ("float32", "bfloat16", "float16"):
+            plan.append(("float32", override))
         else:
             plan.append((name, ""))
     return plan
 
 
-def _tree_key(prefix: str, leaves, plan):
+def _tree_key(prefix: str, leaves, plan, override: Optional[str] = None):
     # Shape/dtype signature in the key: a same-named tree with different
-    # leaf sizes must re-declare (the C core rejects size changes).
+    # leaf sizes must re-declare (the C core rejects size changes). A
+    # codec that ``declare`` set for the name goes in too, so that the
+    # name declares tensors of its own (with fresh error-feedback state);
+    # without one the key is the JAX bridge's.
     sig = tuple((int(l.numel()), _dtype_name(l)) for l in leaves)
-    return (prefix, sig, tuple(p[0] for p in plan))
+    key = (prefix, sig, tuple(p[0] for p in plan))
+    return key if override is None else key + (override,)
 
 
-def _tids(client, prefix: str, leaves, plan):
+def _tids(client, prefix: str, leaves, plan,
+          override: Optional[str] = None):
     global declare_steps
-    key = _tree_key(prefix, leaves, plan)
+    key = _tree_key(prefix, leaves, plan, override)
     tids = _tid_cache.get(key)
     if tids is None:
         declare_steps += 1
@@ -273,13 +284,15 @@ def _stage_h2d(host, leaves):
     return out
 
 
-def _exchange(client, prefix, leaves, plan, host, op) -> int:
+def _exchange(client, prefix, leaves, plan, host, op,
+              override: Optional[str] = None) -> int:
     """The core's leg of a tree: ``op(client, tid, array, wire_dtype)``
-    on each leaf's host buffer under the tree's tensor ids (``_tids``),
+    on each leaf's host buffer under the tree's tensor ids (``_tids``;
+    ``override`` is the codec ``declare`` set for ``prefix``),
     every one enqueued before any wait, then every handle waited, those
     enqueued before a failed enqueue too (the core writes into the
     buffers in place). Returns the bytes handed to the core."""
-    tids = _tids(client, prefix, leaves, plan)
+    tids = _tids(client, prefix, leaves, plan, override)
     staged = []
     try:
         for tid, h, (wire_dtype, _) in zip(tids, host, plan):
@@ -312,11 +325,12 @@ def _run_staged(tree, op, prefix, stream):
         return tree
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
-        plan = _wire_plan(leaves, _codec_active(st))
+        override = st.codecs.get(prefix)
+        plan = _wire_plan(leaves, _codec_active(st), override)
         t0 = time.perf_counter()
         host = _stage_d2h(leaves, plan)
         t1 = time.perf_counter()
-        _exchange(client, prefix, leaves, plan, host, op)
+        _exchange(client, prefix, leaves, plan, host, op, override)
         t2 = time.perf_counter()
         out = _stage_h2d(host, leaves)
         t3 = time.perf_counter()
@@ -437,9 +451,10 @@ def _local_leg(slices, numels, average: bool, prefix: str, compression,
     wires = [compression.compress(s) for s in slices]
     metas = [torch.empty(n, dtype=w.dtype, device="meta")
              for n, w in zip(numels, wires)]
-    plan = _wire_plan(metas, _codec_active(st))
+    override = st.codecs.get(prefix)
+    plan = _wire_plan(metas, _codec_active(st), override)
     dtypes = [getattr(torch, wire) for wire, _ in plan]
-    seg = segment(_tree_key(prefix, metas, plan),
+    seg = segment(_tree_key(prefix, metas, plan, override),
                   [(k * w.numel(), d) for w, d in zip(wires, dtypes)],
                   len(wires))
     seg.round += 1
@@ -465,7 +480,7 @@ def _local_leg(slices, numels, average: bool, prefix: str, compression,
             pushed = _exchange(
                 st.ps_client, prefix, metas, plan,
                 [buf[:n] for buf, n in zip(seg.buffers, numels)],
-                _push_pull_op(average, st.config.enable_async))
+                _push_pull_op(average, st.config.enable_async), override)
             ok = True
         finally:
             for i in range(len(wires)):

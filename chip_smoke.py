@@ -14,7 +14,7 @@ Phases, each of which raises on failure:
    version on the card, at the attention shapes of the main paths (GPT-2
    small: b 8, s 512, h 12, d 64, bf16, causal; BERT-Large: b 32, s 128,
    h 16, d 64, bf16, non-causal; Llama-1B: b 4, s 2048, h 32, d 64, bf16,
-   causal), on f32 cases (unaligned s 600, rectangular causal 100 x 260,
+   causal; GPT-2 medium: b 8, s 512, h 16, d 64, bf16, causal), on f32 cases (unaligned s 600, rectangular causal 100 x 260,
    sliding window 64 at s 300) and on the same shape classes in bf16 and
    f16 (plus non-causal 96 x 96); at the main paths' shapes each timed
    beside its plain version, PyTorch's scaled_dot_product_attention, and
@@ -110,13 +110,28 @@ Phases, each of which raises on failure:
    --local-ps-worker DIR --port P), all four processes on cuda:0, each
    host's pair in a gloo group of its own sharing host staging, one core
    client a host (local rank 0's): GPT-2 small (flash, seed-0 weights) on
-   rows [2r, 2r + 2) of phase 3's tokens for global rank r, 3 steps each
+   rows [2r, 2r + 2) of phase 3's tokens for global rank r, 2 steps each
    of the plain step, the overlapped step with the f32 and the bf16
    wire, the hook-driven buckets and the DistributedOptimizer loop, then
    an evaluation forward, held to one process that combines the four
    ranks' gradients in the fleet's order: equal to the bit on the f32
    wire. The kernel phase checks and times the kernels at a rank's
-   shape ([2, 512, 12, 64]) too.
+   shape ([2, 512, 12, 64]) too;
+12. (run right after phase 11) GPT-2 medium under the C core's codecs
+   (BASELINE config 3, see ``codec_phase``): full width, 12 of its 24
+   layers, seed-0 weights, 8 x 512 tokens, AdamW with a StepLR, one worker and
+   one server a run, each run a fleet of its own with its
+   BYTEPS_COMPRESSOR: (a) no codec, the plain step on the f32 and the
+   bf16 wire; (b) onebit + EF through the plain step, the overlapped and
+   bucketed steps and DistributedOptimizer(named_parameters) in turns;
+   (c) topk + EF at the core's default k; (d) onebit + EF on the bf16
+   wire. Wire bytes each way (the client's van counters), the D2H / core
+   / H2D split, step times, losses and launches; (b) and (d) must cut
+   both legs more than 8x, (c) the push leg more than 2x, the step-1
+   losses must equal (a)'s to the bit, the later ones stay within
+   ``_codec_loss_bounds``, and (b)'s four paths equal each other to the
+   bit. The kernel phase checks and times the kernels at GPT-2 medium's
+   shape ([8, 512, 16, 64]) too.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -126,6 +141,7 @@ is not available or any phase fails.
 from __future__ import annotations
 
 import collections
+import copy
 import contextlib
 import importlib
 import json
@@ -147,8 +163,14 @@ HBM_BPS = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, file=sys.stderr, flush=True)
+    """A line on stderr, behind the seconds since this process started
+    (where each phase's time goes)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, file=sys.stderr,
+          flush=True)
 
 
 # --- phase 1: build ----------------------------------------------------------
@@ -383,6 +405,8 @@ CASES = [
     ("pp_gpt2m", 1, 1024, 1024, 16, 64, "bfloat16", True, None),
     # GPT-2 small on each rank of phase 11's fleet: its 2 rows of the 8
     ("gpt2_local_ps", 2, SEQ, SEQ, 12, 64, "bfloat16", True, None),
+    # GPT-2 medium's data-parallel step (phases 6 and 12)
+    ("gpt2_medium", BATCH, SEQ, SEQ, 16, 64, "bfloat16", True, None),
     # f32: the FMA kernels
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
@@ -400,7 +424,7 @@ CASES = [
 ]
 # the main paths' shapes, timed beside their plain versions and SDPA
 TIMED = ("gpt2", "bert_large", "llama1b", "ulysses_8192", "tp_gpt2m",
-         "pp_gpt2m", "gpt2_local_ps")
+         "pp_gpt2m", "gpt2_local_ps", "gpt2_medium")
 
 
 def kernel_phase():
@@ -1374,12 +1398,12 @@ def _bert_loss(model, batch):
     return masked_lm_loss(model(tokens), tokens, mask)
 
 
-def _gpt2_medium(attn_impl="flash"):
+def _gpt2_medium(attn_impl="flash", **kw):
     import torch
 
     from byteps_tpu_torch.models import GPT2Medium
     return GPT2Medium(attn_impl=attn_impl,
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0), **kw)
 
 
 def _llama(attn_impl="flash", remat=False):
@@ -1949,6 +1973,8 @@ SP_RANKS, SP_TIMEOUT_S = 2, 600
 # Llama-1B over one row of SP_SEQ tokens; the ring check at depth
 # SP_RING_LAYERS
 SP_SEQ, SP_RING_LAYERS = 8192, 2
+# phase 9 (b)'s steps on the pair (see _sp_llama)
+SP_STEPS = 2
 # bf16's rounding unit: the share by which a bf16 model's loss may move
 # when its attention runs in another arithmetic (ring's f32 blocks)
 BF16_UNIT = 2.0 ** -8
@@ -2020,9 +2046,10 @@ def _sp_llama(sp, rank):
     """(b): Llama1B(flash) with the seed-0 weights and ``sp_group``, rank
     r holding tokens [r S/2, (r + 1) S/2) of (a)'s sequence (positions
     global by default): an evaluation forward at the seed-0 weights, then
-    STEPS make_train_step steps of sp_lm_loss with (a)'s AdamW, the
+    make_train_step steps of sp_lm_loss with (a)'s AdamW, the
     gradients averaged over the sp group. The flash wrapper's inputs are
-    recorded (the inner call's shape)."""
+    recorded (the inner call's shape). SP_STEPS steps, fewer than
+    (a)'s: a step of the pair takes 15-27 s on gloo's loopback."""
     import torch
 
     import byteps_tpu_torch as bps
@@ -2053,7 +2080,7 @@ def _sp_llama(sp, rank):
         torch.cuda.synchronize()
         fa.reset_launches()
         C.reset_bytes()
-        for _ in range(STEPS):
+        for _ in range(SP_STEPS):
             t0 = time.perf_counter()
             loss = step(model, tokens)
             torch.cuda.synchronize()
@@ -2063,7 +2090,7 @@ def _sp_llama(sp, rank):
     out = {"losses": losses, "step_ms": times, "launches": launches,
            "eval_launches": eval_launches,
            "flash_shapes": sorted(shapes),
-           "bytes_per_step": {k: v / STEPS for k, v in moved.items()},
+           "bytes_per_step": {k: v / SP_STEPS for k, v in moved.items()},
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     del model, opt, step
     bps.shutdown()
@@ -2377,7 +2404,7 @@ def sp_phase(coll_losses):
         b, c, d = rec["b"], rec["c"], rec["d"]
         label = f"llama1b_sp2 rank {rank}"
         _losses_match(label, b["losses"], losses, wire="bfloat16")
-        _check_launches(label, b["launches"], lm.layers, STEPS)
+        _check_launches(label, b["launches"], lm.layers, SP_STEPS)
         _check_eval_launches(label, b["eval_launches"], lm.layers)
         if b["flash_shapes"] != [[1, SP_SEQ, heads // SP_RANKS, head_dim]]:
             raise AssertionError(f"{label} flash shapes {b['flash_shapes']}")
@@ -3084,7 +3111,7 @@ def _par_gates(ref, recs, tmp):
 
 # --- phase 11: two hosts of two ranks in PS mode on one card -----------------
 
-LOCAL_HOSTS, LOCAL_SIZE, LOCAL_STEPS, LOCAL_TIMEOUT_S = 2, 2, 3, 600
+LOCAL_HOSTS, LOCAL_SIZE, LOCAL_STEPS, LOCAL_TIMEOUT_S = 2, 2, 2, 600
 # the PS paths of a host of LOCAL_SIZE ranks, with the wire each sums
 LOCAL_PATHS = {"ps": "float32", "overlap_f32": "float32",
                "overlap_bf16": "bfloat16", "bucketed_multi": "float32",
@@ -3476,6 +3503,297 @@ def _local_gates(recs, ref_losses, numels, stage, left):
     return read
 
 
+# --- phase 12: GPT-2 medium under the C core's onebit and topk codecs -------
+
+ONEBIT = "type=onebit;ef=vanilla"
+TOPK = "type=topk;ef=vanilla"  # the core's default k: 1 % of each partition
+# run -> (BYTEPS_COMPRESSOR of its fleet, the paths it runs in turns,
+# steps a path); ps_bf16 is the plain step with Compression.bf16 (the
+# wire of BASELINE's 345M chip bench), dense runs it as the reference of
+# onebit_bf16. Fewer steps than STEPS: a codec step takes 5-9 s of the
+# core's host codecs (PERF.md, PR 11); the runs that compare paths or
+# carry the loss bound's reference take 3, topk and onebit_bf16 2.
+CODEC_RUNS = {
+    "dense": ("", ("ps", "ps_bf16"), 3),
+    "onebit": (ONEBIT, ("ps", "overlap_f32", "bucketed_multi",
+                        "distributed_optimizer"), 3),
+    "topk": (TOPK, ("ps",), 2),
+    "onebit_bf16": (ONEBIT, ("ps_bf16",), 2),
+}
+CODEC_LR, CODEC_GAMMA = 1e-4, 0.5
+# GPT-2 medium at full width with 12 of its 24 layers: at 24 layers the
+# phase took 285 s (4 steps) and 240 s (3 steps) of the script's 1200,
+# the codecs' host passes scaling with the parameters (PERF.md, PR 11)
+CODEC_LAYERS = 12
+CODEC_LOSS_CAP = 2.5  # tests/test_examples.py's dense + 2.5, the loosest
+
+
+def _codec_path(label, base, lm):
+    """A copy of ``base`` (``lm``, seed-0 weights), _ps_path's AdamW and a
+    StepLR(1, CODEC_GAMMA) stepped after every step, through the PS path
+    ``label`` (its tensors under a prefix of its own, so each path keeps
+    its own error feedback). The DistributedOptimizer is the reference
+    plugin's usage: named_parameters, the scheduler around the wrapped
+    optimizer. Returns (model, step)."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.bucketed import make_bucketed_overlap_step
+    from byteps_tpu_torch.overlap import make_overlapped_train_step
+    from byteps_tpu_torch.training import make_train_step
+
+    model = copy.deepcopy(base)
+    opt = torch.optim.AdamW(model.parameters(), lr=CODEC_LR,
+                            weight_decay=1e-4)
+    if label in ("ps", "ps_bf16"):
+        inner = make_train_step(
+            lm.loss, opt, ps_prefix=f"codec_{label}",
+            compression=(bps.Compression.bf16 if label == "ps_bf16"
+                         else bps.Compression.none))
+    elif label == "overlap_f32":
+        inner = make_overlapped_train_step(lm.loss, opt, prefix=label)
+    elif label == "bucketed_multi":
+        inner = make_bucketed_overlap_step(lm.loss, opt, prefix=label,
+                                           multi_program=True)
+    else:
+        opt = bps.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters())
+
+        def inner(model, tokens):
+            opt.zero_grad()
+            loss = lm.loss(model, tokens)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        inner.close = opt._taps.close
+    sched = torch.optim.lr_scheduler.StepLR(opt, 1, gamma=CODEC_GAMMA)
+
+    def step(model, tokens):
+        loss = inner(model, tokens)
+        sched.step()
+        return loss
+    step.close = getattr(inner, "close", None)
+    step.lr = lambda: opt.param_groups[0]["lr"]
+    return model, step
+
+
+def _codec_fleet(run, base, lm, evaluate=False):
+    """The steps of each path of ``run`` (CODEC_RUNS) in turns, from copies
+    of ``base``, in a fleet of
+    its own whose every role has the run's BYTEPS_COMPRESSOR: per step
+    its loss, host ms, the wire bytes each way (the root client's
+    ``net_bytes()`` around the step), the flash launches (counts set to
+    0 just before the step, read just after) and, for the plain step,
+    ``ps.last_timings``' D2H / core / H2D split; with ``evaluate``, then
+    one evaluation forward of the first path's model."""
+    import gc
+
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch import ps
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    codec, labels, steps = CODEC_RUNS[run]
+    with _fleet({"BYTEPS_COMPRESSOR": codec}):
+        bps.init()
+        try:
+            tokens = lm.batch(bps.device())
+            torch.cuda.reset_peak_memory_stats()
+            paths = {label: _codec_path(label, base, lm)
+                     for label in labels}
+            client = bps._st().ps_client
+            rec = {label: {"losses": [], "step_ms": [], "sent": [],
+                           "received": [], "staging": [], "lr": [],
+                           "launches": dict.fromkeys(fa.LAUNCHES, 0)}
+                   for label in labels}
+            torch.cuda.synchronize()
+            for r in range(steps):
+                for label in labels[r % len(labels):] + labels[
+                        :r % len(labels)]:
+                    model, step = paths[label]
+                    out = rec[label]
+                    out["lr"].append(step.lr())
+                    sent, received = client.net_bytes()
+                    fa.reset_launches()
+                    t0 = time.perf_counter()
+                    loss = step(model, tokens)
+                    torch.cuda.synchronize()
+                    out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                    for k, v in fa.LAUNCHES.items():
+                        out["launches"][k] += v
+                    now = client.net_bytes()
+                    out["sent"].append(now[0] - sent)
+                    out["received"].append(now[1] - received)
+                    out["losses"].append(loss.item())
+                    if label.startswith("ps"):
+                        out["staging"].append(
+                            {k: v * 1e3 for k, v in ps.last_timings.items()})
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if evaluate:
+                evaluation = dict(zip(
+                    ("eval_launches", "eval_flash_vs_plain_max_abs_err"),
+                    _evaluate(lm, paths[labels[0]][0], tokens,
+                              tokens[:2, :128])))
+            for _, step in paths.values():
+                if step.close is not None:
+                    step.close()
+            del paths, model, step, tokens
+        finally:
+            bps.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, out in rec.items():
+        _check_launches(f"{run} {label}", out["launches"], lm.layers,
+                        steps)
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"{run} {label}: non-finite losses "
+                                 f"{out['losses']}")
+        out.update(
+            peak_memory_gb=peak_gb, median_step_ms=_median(out["step_ms"]),
+            sent_per_step=_median(out["sent"]),
+            received_per_step=_median(out["received"]),
+            flash_launches_per_step={k: v / steps
+                                     for k, v in out["launches"].items()})
+        if out["staging"]:
+            out["staging_ms"] = {
+                k: _median([s[k] for s in out["staging"]])
+                for k in ("d2h_s", "core_s", "h2d_s")}
+        log(f"codec {run} {label}: losses {out['losses']} step ms "
+            f"{[round(x, 1) for x in out['step_ms']]} bytes sent "
+            f"{out['sent']} received {out['received']}"
+            + (f" D2H/core/H2D ms {out['staging_ms']}"
+               if out["staging"] else ""))
+    return {"paths": rec, **(evaluation if evaluate else {})}
+
+
+def _adam_ratio_bounds(steps, b1=0.9, b2=0.999):
+    """c_s, s = 1..steps: the most |m_hat / sqrt(v_hat)| of AdamW's
+    update s can be, whatever the gradients (Cauchy-Schwarz over the
+    bias-corrected averages: sqrt(sum_i a_i^2 / b_i) with a_i, b_i the
+    weights of gradient i in m_hat and v_hat)."""
+    out = []
+    for s in range(1, steps + 1):
+        a = [(1 - b1) * b1 ** (s - i) / (1 - b1 ** s)
+             for i in range(1, s + 1)]
+        b = [(1 - b2) * b2 ** (s - i) / (1 - b2 ** s)
+             for i in range(1, s + 1)]
+        out.append(math.sqrt(sum(x * x / y for x, y in zip(a, b))))
+    return out
+
+
+def _codec_loss_bounds(dense, lrs):
+    """How far a lossy run's loss after step t may sit from the dense
+    run's (``dense``: (a)'s f32 losses; ``lrs``: the lr of each step).
+
+    Every run is AdamW from the same weights, so update s moves each
+    weight by at most lr_s * c_s (``_adam_ratio_bounds``; the weight
+    decay's lr_s * 1e-4 * |w| is below 1e-8 of that) whatever gradients
+    the codec hands it. To first order a run's loss then moves from L_1
+    by at most |g_1|_1 * sum_{s<t} lr_s c_s, with g_1 the step-1 gradient
+    (the same in every run: same weights, same tokens). AdamW's first
+    update is lr_1 * sign(g_1), the steepest move in that box, so the
+    dense run's first drop D = L_1 - L_2 is |g_1|_1 lr_1 to first order.
+    Hence |L_t - L_1| <= D * sum_{s<t} (lr_s / lr_1) c_s for any run; the
+    bound doubles that for the curvature the first order leaves out and
+    adds the dense run's own distance |L_t^dense - L_1|, and is capped at
+    CODEC_LOSS_CAP. Step 1 has bound 0: it must equal the dense loss to
+    the bit."""
+    c = _adam_ratio_bounds(len(dense))
+    drop = abs(dense[0] - dense[1])
+    bounds = [0.0]
+    for t in range(1, len(dense)):
+        box = sum(lrs[s] / lrs[0] * c[s] for s in range(t))
+        bounds.append(min(CODEC_LOSS_CAP,
+                          2 * drop * box + abs(dense[t] - dense[0])))
+    return bounds
+
+
+def codec_phase():
+    """Phase 12 (BASELINE config 3, GPT-2 345M with the onebit / topk
+    codecs). GPT2Medium(flash) at full width, CODEC_LAYERS of its 24
+    layers, seed-0 weights,
+    phase 3's 8 x 512 tokens, AdamW(1e-4, weight decay 1e-4) with
+    StepLR(1, 0.5), 3 steps of each path (2 in (c) and (d)), one worker
+    and one server, each run in a fleet of its own (CODEC_RUNS): (a) dense: the
+    plain step on the f32 and on the bf16 wire; (b) onebit + EF: the
+    plain step, overlap_f32, bucketed_multi and the DistributedOptimizer
+    (named_parameters, the scheduler around it) in turns; (c) topk + EF
+    at the core's default k; (d) onebit + EF under the bf16 wire.
+
+    Gates: (b)'s bytes each way under 1/8 of (a)'s f32 run's, (c)'s sent
+    under 1/2 of it, (d)'s each way under 1/8 of (a)'s bf16 run's; every
+    path's step-1 loss equal to (a)'s to the bit, every loss finite, the
+    later losses of (b), (c) and (d) within ``_codec_loss_bounds`` of
+    (a)'s; the four paths of (b) equal to each other to the bit (each
+    sums the same gradient under the same codec with error feedback of
+    its own, and the servers' reply is decoded alike); the launch counts
+    of every path and of each run's evaluation forward."""
+    import functools
+
+    import torch
+    lm = GPT2M._replace(make=functools.partial(GPT2M.make,
+                                               num_layers=CODEC_LAYERS),
+                        layers=CODEC_LAYERS)
+    base = lm.make()
+    runs = {run: _codec_fleet(run, base, lm, evaluate=run == "onebit")
+            for run in CODEC_RUNS}
+    del base
+    torch.cuda.empty_cache()
+    dense = runs["dense"]["paths"]
+    ref, ref_bf16 = dense["ps"], dense["ps_bf16"]
+    bounds = _codec_loss_bounds(ref["losses"], ref["lr"])
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            failures.append(what)
+    for run, out in runs.items():
+        for label, p in out["paths"].items():
+            gate(p["losses"][0] == ref["losses"][0],
+                 f"{run} {label}: step-1 loss {p['losses'][0]!r} != dense "
+                 f"{ref['losses'][0]!r}")
+            if run == "dense":
+                continue
+            for t, (a, b) in enumerate(zip(p["losses"], ref["losses"])):
+                gate(abs(a - b) <= bounds[t],
+                     f"{run} {label}: loss {a} at step {t + 1} is "
+                     f"{abs(a - b):.4g} from dense {b} (bound {bounds[t]:.4g})")
+    for label, p in runs["onebit"]["paths"].items():
+        gate(p["sent_per_step"] * 8 < ref["sent_per_step"]
+             and p["received_per_step"] * 8 < ref["received_per_step"],
+             f"onebit {label}: {p['sent_per_step']} / "
+             f"{p['received_per_step']} bytes a step against dense "
+             f"{ref['sent_per_step']} / {ref['received_per_step']}")
+        gate(p["losses"] == runs["onebit"]["paths"]["ps"]["losses"],
+             f"onebit {label}: losses {p['losses']} != the plain step's "
+             f"{runs['onebit']['paths']['ps']['losses']}")
+    topk = runs["topk"]["paths"]["ps"]
+    gate(topk["sent_per_step"] * 2 < ref["sent_per_step"],
+         f"topk: {topk['sent_per_step']} bytes sent a step against dense "
+         f"{ref['sent_per_step']}")
+    half = runs["onebit_bf16"]["paths"]["ps_bf16"]
+    gate(half["sent_per_step"] * 8 < ref_bf16["sent_per_step"]
+         and half["received_per_step"] * 8 < ref_bf16["received_per_step"],
+         f"onebit_bf16: {half['sent_per_step']} / "
+         f"{half['received_per_step']} bytes a step against dense bf16 "
+         f"{ref_bf16['sent_per_step']} / {ref_bf16['received_per_step']}")
+    summary = {run: {label: {k: p[k] for k in (
+        "median_step_ms", "sent_per_step", "received_per_step",
+        "flash_launches_per_step", "peak_memory_gb", "losses", "step_ms",
+        "staging_ms") if k in p} for label, p in out["paths"].items()}
+        for run, out in runs.items()}
+    evaluation = {k: v for k, v in runs["onebit"].items() if k != "paths"}
+    log("GPT-2 medium codec runs (median of steps 2 on; bytes a step; loss "
+        "bounds " + json.dumps(bounds) + "):", json.dumps(summary),
+        json.dumps(evaluation))
+    if failures:
+        raise AssertionError("codec phase failed:\n" + "\n".join(failures))
+    return {"runs": summary, "loss_bounds": bounds, **evaluation,
+            "launches": {**runs["onebit"]["paths"]["ps"]["launches"],
+                         "fwd": evaluation["eval_launches"]["fwd"]}}
+
+
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
@@ -3522,6 +3840,9 @@ def main() -> int:
     par = par_phase()
     # and phase 11, whose four processes share the card
     local = local_ps_phase()
+    # phase 12, while this process still holds little of the card: the
+    # onebit fleet holds four GPT-2 medium models with their AdamW state
+    codec = codec_phase()
     alone, paths = ps_phase(coll_losses)
     plain = paths.pop("ps")
     images = resnet_phase()
@@ -3567,6 +3888,7 @@ def main() -> int:
         "sequence_parallel": sp,
         "parallel": par,
         "local_ps": local,
+        "codec": codec,
         "memory_held_after_phase8_gb": held_gb,
         "sdpa_fwd_bwd_ms": {case: timing[case]["sdpa_fwd_bwd_ms"]
                             for case in TIMED},
@@ -3611,7 +3933,10 @@ def main() -> int:
                "gpt2_local_ps_rank0": {
                    **local["ranks"][0]["paths"]["ps"]["launches"],
                    "fwd": local["ranks"][0]["paths"][
-                       "distributed_optimizer"]["eval_launches"]["fwd"]}}
+                       "distributed_optimizer"]["eval_launches"]["fwd"]},
+               # phase 12's onebit fleet: the plain step's training steps,
+               # and for fwd the evaluation forward
+               "gpt2_medium_onebit": codec["launches"]}
     kernels = []
     for name, (fn, replaces) in REPLACES.items():
         kernels.append({

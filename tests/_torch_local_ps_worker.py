@@ -189,8 +189,9 @@ def _run_path(path, inputs, rank, client, fault=None):
 
 def _collective_checks(rank, client):
     """push_pull (sync, async, in place, a bf16 wire), the async step's
-    refusal, broadcast_parameters from a local rank other than 0 and a
-    checkpoint restored across the group."""
+    refusal, broadcast_parameters from a local rank other than 0,
+    broadcast_optimizer_state to a fresh rank and a checkpoint restored
+    across the group."""
     import byteps_tpu_torch as bps
     from byteps_tpu_torch import ps
     from byteps_tpu_torch.training import make_async_train_step
@@ -225,6 +226,23 @@ def _collective_checks(rank, client):
               "b": torch.arange(4.0) + 100 * rank}
     bps.broadcast_parameters(params, root_rank=1, name="bcast")
     out["broadcast"] = {k: v.tolist() for k, v in params.items()}
+    # a stepped root and a fresh local rank 1: the state, its step count
+    # and the lr come from the root, the parameters stay as they were
+    torch.manual_seed(rank)
+    lin = torch.nn.Linear(3, 2)
+    opt = torch.optim.AdamW(lin.parameters(), lr=1e-3 * (rank + 1),
+                            weight_decay=0.1)
+    if rank == 0:
+        lin(torch.ones(2, 3)).sum().backward()
+        opt.step()
+    kept = [p.detach().clone() for p in lin.parameters()]
+    bps.broadcast_optimizer_state(opt, root_rank=0)
+    out["opt_state"] = {
+        "lr": opt.param_groups[0]["lr"],
+        "state": [(pid, k, v.tolist()) for pid, s in sorted(
+            opt.state_dict()["state"].items()) for k, v in sorted(s.items())],
+        "moved": [not torch.equal(p.detach(), k)
+                  for p, k in zip(lin.parameters(), kept)]}
     ckpt = os.path.join(os.environ["BYTEPS_LOCAL_STAGE_DIR"], "..", "ckpt")
     save_checkpoint(ckpt, {"w": torch.arange(6.0) + 7}, 1)
     ps.ps_barrier()  # the group, the root through the scheduler, the group

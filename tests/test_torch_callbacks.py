@@ -167,6 +167,7 @@ def test_broadcast_and_metric_average_over_gloo(tmp_path):
     for (i0, k0, v0), (i1, k1, v1) in zip(r0["opt"], r1["opt"]):
         assert (i0, k0) == (i1, k1)
         np.testing.assert_array_equal(v0, v1)
-    # broadcast_optimizer_state overwrites tensors only: lr stays local
-    assert (r0["lr"], r1["lr"]) == (1e-3, 2e-3)
+    # broadcast_optimizer_state takes the param_groups from the root too,
+    # as the reference torch plugin does: rank 1 now holds rank 0's lr
+    assert (r0["lr"], r1["lr"]) == (1e-3, 1e-3)
     assert r0["metrics"] == r1["metrics"] == {"acc": 15.0, "loss": 1.5}

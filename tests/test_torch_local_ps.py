@@ -302,6 +302,13 @@ def test_local_group_collectives(world):
                                   "b": [100.0, 101.0, 102.0, 103.0]}
         assert c["restored"] == ((torch.arange(6.0) + 7).tolist(), 1)
         assert c["fleet_barriers"] == (1 if r == 0 else 0)
+    # broadcast_optimizer_state through the three stages: rank 1, fresh,
+    # holds the root's moments, step count and lr, its parameters unmoved
+    o0, o1 = (rec["checks"]["opt_state"] for rec in ranks)
+    assert o0["state"] == o1["state"] and len(o0["state"]) == 6
+    assert [v for _, k, v in o1["state"] if k == "step"] == [1.0, 1.0]
+    assert o0["lr"] == o1["lr"] == 1e-3
+    assert o0["moved"] == o1["moved"] == [False, False]
 
 
 def test_push_pull_async_beside_a_hooked_step(world):
