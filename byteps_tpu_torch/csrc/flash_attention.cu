@@ -3,13 +3,13 @@
 //
 // Replaces the four Pallas TPU kernels of byteps_tpu/ops/flash_attention.py:
 //   fa_fwd_wgmma_kernel<T, D, true>   bf16/f16 <- _fa_kernel via
-//   fa_fwd_kernel<float, D, true>     f32          _flash_fwd_impl(return_lse=True)
+//   fa_fwd_tf32_kernel<D, true>       f32          _flash_fwd_impl(return_lse=True)
 //   fa_fwd_wgmma_kernel<T, D, false>  bf16/f16 <- _kernel_nolse (forward with
-//   fa_fwd_kernel<float, D, false>    f32          no residuals)
+//   fa_fwd_tf32_kernel<D, false>      f32          no residuals)
 //   fa_bwd_dq_wgmma_kernel<T, D>      bf16/f16 <- _fa_bwd_dq_kernel (+ _bwd_recompute,
 //   fa_bwd_dq_kernel<float, D>        f32          _bwd_mask, _bwd_live)
 //   fa_bwd_dkv_wgmma_kernel<T, D>     bf16/f16 <- _fa_bwd_dkv_kernel
-//   fa_bwd_dkv_kernel<float, D>       f32
+//   fa_bwd_dkv_tf32_kernel<D>         f32
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [batch, seq, heads, head_dim]
 // row-major (the public layout; no transposes around the kernels); lse and
@@ -44,15 +44,14 @@
 //   needs ~140 registers, leaves room for three blocks, and measured
 //   slower.
 // The bf16/f16 backward kernels follow the same design (their note is
-// above fa_bwd_dq_wgmma_kernel). The f32 kernels (fa_fwd_kernel,
-// fa_bwd_dq_kernel, fa_bwd_dkv_kernel) do every product as f32 FMAs on the
-// CUDA cores from shared memory: TF32 would not hold f32 inputs to f32
-// accuracy, and the f32 FMA peak (67 TFLOP/s) and shared-memory bandwidth
-// set their pace. Every product of two bf16/f16
-// inputs is exact in f32 on either path, so the kernels differ from the
-// plain version in the order of their f32 sums and, on the tensor-core
-// path, in ex2's last bits (a relative 1e-6 in p, far below its rounding to
-// bf16 or f16).
+// above fa_bwd_dq_wgmma_kernel). In f32 the forward and dK/dV run on the
+// tensor cores too, each product as three TF32 products (their note is
+// above fa_fwd_tf32_kernel); f32 dQ (fa_bwd_dq_kernel) does every product
+// as f32 FMAs on the CUDA cores from shared memory. Every product of two
+// bf16/f16 inputs is exact in f32, so those kernels differ from the plain
+// version in the order of their f32 sums and, on the tensor cores, in
+// ex2's last bits (a relative 1e-6 in p, far below its rounding to bf16 or
+// f16); the f32 ones also in the split's 2^-21 a product.
 //
 // Conventions kept from the TPU kernels: causal mask top-left aligned
 // (q_pos >= k_pos, both from 0, also when seq_q != seq_k); masked logits
@@ -78,8 +77,8 @@ constexpr int NT = 256;       // threads per block: 16 row groups x 16 lanes
 constexpr float kNegInf = -1e30f;
 constexpr float kBig = 1e30f;
 
-// Conversions for the FMA kernels, which serve f32 only (bf16/f16 take the
-// tensor-core kernels).
+// Conversions for the FMA kernel (f32 dQ; every other kernel is on the
+// tensor cores).
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 
@@ -89,18 +88,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 // x rounded to T and back: the kernels' counterpart of `.astype(T)`.
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
-}
-
-// Sum / max over the 16 lanes that share a row group (lanes 0-15 or 16-31).
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
 }
 
 // Rows [start, start + ROWS) of head (b, h) of a [B, S, H, D] tensor into a
@@ -123,122 +110,9 @@ __device__ __forceinline__ bool live(int qp, int kp, int Sq, int Sk, int causal,
   return ok;
 }
 
-// Thread layout shared by all three kernels: tid = ty * 16 + tx. A thread
-// owns tile rows ty*4 .. ty*4+3, score columns tx + 16*j (j < 4), and output
-// columns tx + 16*c (c < D/16). The 16 lanes of a row group sit in one half
-// warp, so row reductions are four shuffles.
-
-template <typename T, int D, bool LSE>
-__global__ void __launch_bounds__(NT)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, float* __restrict__ lse, int H, int Sq, int Sk, float scale,
-              int causal, int window) {
-  constexpr int LD = D + 1, LP = BK + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<T, D, LD, BQ>(sQ, q, b, h, H, Sq, q0);
-
-  const int nk = (Sk + BK - 1) / BK;
-  int kt_lo = 0, kt_hi = nk;
-  if (causal) {
-    kt_hi = min(nk, (min(q0 + BQ, Sq) - 1) / BK + 1);
-    if (window > 0) kt_lo = max(0, q0 - (window - 1)) / BK;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D, LD, BK>(sK, k, b, h, H, Sk, k0);
-    load_tile<T, D, LD, BK>(sV, v, b, h, H, Sk, k0);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = live(qp, k0 + tx + 16 * j, Sq, Sk, causal, window);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        sP[(ty * 4 + i) * LP + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * corr + group_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * LP + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = sV[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= Sq) continue;
-    const float safe_l = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + ((size_t)(b * Sq + qp) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / safe_l);
-    if (LSE && tx == 0) lse[(size_t)bh * Sq + qp] = l[i] == 0.f ? kBig : m[i] + logf(safe_l);
-  }
-}
+// Thread layout of the FMA kernel: tid = ty * 16 + tx. A thread owns tile
+// rows ty*4 .. ty*4+3, score columns tx + 16*j (j < 4), and output columns
+// tx + 16*c (c < D/16).
 
 // --- the bf16/f16 forward on the tensor cores --------------------------------
 
@@ -268,21 +142,21 @@ __device__ __forceinline__ float exp2_approx(float x) {
 
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// One tile of the online softmax on this thread's S fragment: s[i*4 + r*2
-// + e] is row r, key column c0 + 8i + e of the tile, live when it lies in
-// [lo[r], hi[r]] (with MASK; every element is live without). The running
-// max m is kept in base 2 (max s * scale * log2 e), so each p is one FMA
-// and one ex2; masked elements get logit -1e30 and p = 0. On return s holds
-// p (unrounded f32).
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+// One tile of the online softmax on this thread's S fragment of a [64 x
+// 2 NS] tile: s[i*4 + r*2 + e] is row r, key column c0 + 8i + e of the
+// tile, live when it lies in [lo[r], hi[r]] (with MASK; every element is
+// live without). The running max m is kept in base 2 (max s * scale * log2
+// e), so each p is one FMA and one ex2; masked elements get logit -1e30
+// and p = 0. On return s holds p (unrounded f32).
+template <bool MASK, int NS = 32>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], const int (&lo)[2],
                                              const int (&hi)[2], float scale_log2) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = kNegInf;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NS / 4; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[i * 4 + r * 2 + e];
@@ -295,7 +169,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
     corr[r] = exp2_approx(m[r] - m_new);
     float rs = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NS / 4; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[i * 4 + r * 2 + e];
@@ -576,137 +450,6 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* row = dq + ((size_t)(b * Sq + qp) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c]);
-  }
-}
-
-// One block per (head, 64-row K tile) walking the Q tiles: dK and dV of a
-// tile are summed in its own registers, so no atomics and no second pass.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, int H,
-                  int Sq, int Sk, float scale, int causal, int window) {
-  constexpr int LD = D + 1, LP = BQ + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + BK * LD;
-  float* sQ = sV + BK * LD;
-  float* sDO = sQ + BQ * LD;
-  float* sP = sDO + BQ * LD;
-  float* sDS = sP + BK * LP;
-  float* sL = sDS + BK * LP;
-  float* sD = sL + BQ;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BK;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<T, D, LD, BK>(sK, k, b, h, H, Sk, k0);
-  load_tile<T, D, LD, BK>(sV, v, b, h, H, Sk, k0);
-
-  const int nq = (Sq + BQ - 1) / BQ;
-  int qt_lo = 0, qt_hi = nq;
-  if (causal) {
-    qt_lo = k0 / BQ;  // first Q tile holding a q_pos >= k0
-    if (window > 0) qt_hi = min(nq, (min(k0 + BK, Sk) - 1 + window - 1) / BQ + 1);
-  }
-
-  float acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();
-    load_tile<T, D, LD, BQ>(sQ, q, b, h, H, Sq, q0);
-    load_tile<T, D, LD, BQ>(sDO, dout, b, h, H, Sq, q0);
-    for (int r = threadIdx.x; r < BQ; r += NT) {
-      const int qp = q0 + r;
-      sL[r] = qp < Sq ? lse[(size_t)bh * Sq + qp] : kBig;
-      sD[r] = qp < Sq ? dvec[(size_t)bh * Sq + qp] : 0.f;
-    }
-    __syncthreads();
-
-    // Transposed tiles: rows are keys (ty), columns are queries (tx).
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bv[4], bq[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sK[(ty * 4 + i) * LD + d];
-        bv[i] = sV[(ty * 4 + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bq[j] = sQ[(tx + 16 * j) * LD + d];
-        g[j] = sDO[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bq[j], s[i][j]);
-          dp[i][j] = fmaf(bv[i], g[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kp = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        const float p = live(q0 + qc, kp, Sq, Sk, causal, window)
-                            ? expf(s[i][j] * scale - sL[qc])
-                            : 0.f;
-        const float ds = p * (dp[i][j] - sD[qc]) * scale;
-        sP[(ty * 4 + i) * LP + qc] = p;
-        sDS[(ty * 4 + i) * LP + qc] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float p[4], ds[4], g[DC], qv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = sP[(ty * 4 + i) * LP + qq];
-        ds[i] = sDS[(ty * 4 + i) * LP + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        g[c] = sDO[qq * LD + tx + 16 * c];
-        qv[c] = sQ[qq * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc_v[i][c] = fmaf(p[i], g[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(ds[i], qv[c], acc_k[i][c]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
-    if (kp >= Sk) continue;
-    const size_t off = ((size_t)(b * Sk + kp) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[off + tx + 16 * c] = from_f<T>(acc_k[i][c]);
-      dv[off + tx + 16 * c] = from_f<T>(acc_v[i][c]);
-    }
   }
 }
 
@@ -1175,6 +918,562 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// --- f32 on the tensor cores: three TF32 products ----------------------------
+//
+//   fa_fwd_tf32_kernel<D, true>   <- _fa_kernel (with lse)
+//   fa_fwd_tf32_kernel<D, false>  <- _kernel_nolse
+//   fa_bwd_dkv_tf32_kernel<D>     <- _fa_bwd_dkv_kernel
+// of byteps_tpu/ops/flash_attention.py, for f32 (dQ in f32 stays on
+// fa_bwd_dq_kernel's FMAs).
+//
+// What bounds them on the H100. f32 accuracy from the tensor cores takes
+// three TF32 products a product: each operand is split into hi = x rounded
+// to TF32 (cvt.rna) and lo = x - hi rounded to TF32, and a b = a_lo b_hi +
+// a_hi b_lo + a_hi b_hi (small terms first, one f32 accumulator; the a_lo
+// b_lo term, 2^-22 of |a b|, is dropped), which holds each product to about
+// 2^-21 of itself, where one TF32 product errs by 2^-11. At 495 / 3 TFLOP/s
+// that is the least time: at GPT-2 small's shapes (b 8, s 512, h 12, d 64,
+// causal) 0.0196 ms for the forward's 3.2 GFLOP against 0.0150 ms for its
+// 50 MB of f32, and 0.0391 ms for dK/dV (0.0227 ms of bytes). The design
+// follows the bf16 kernels', with what TF32 changes:
+// - wgmma reads TF32 operands from shared memory K-major only (the
+//   transpose immediates exist for 16-bit types alone). Q K^T (and K Q^T,
+//   V dO^T) reduce over d, along which the [b, s, h, d] rows are already
+//   K-major, so TMA's tiles serve as they land. P V, P^T dO and dS^T Q
+//   reduce over keys or queries, so V, dO and Q are also needed as [d][s]
+//   tiles: after each TMA tile lands the warpgroup's threads split it and
+//   write the transpose (split_transpose), in the 128- or 64-byte swizzle
+//   wgmma reads;
+// - that pass also writes the split: hi over the TMA tile in place and lo
+//   beside it; P and dS (the A operands of the second products) are split
+//   in registers. A thread's accumulator pair sits at columns 2t, 2t+1 of
+//   each 8, where a TF32 A fragment takes columns t and t+4, so the
+//   transposed tiles store row r of each 8 at K index perm8(r) and the
+//   fragment needs no shuffle;
+// - an f32 tile is twice a bf16 one and hi + lo doubles it again: the
+//   forward keeps Q (hi, lo), a two-stage ring of raw K and V tiles of 32
+//   keys, K's lo and V^T's hi and lo, 88 KB at d 64 (176 KB at d 128), so
+//   two blocks share an SM and one's split and softmax overlap the other's
+//   products; dK/dV keeps K and V (hi, lo), a two-stage ring of Q and dO
+//   tiles, their lo and their transposes' hi and lo, 226 KB at d 64 (64
+//   queries a tile; 16 at d 128, 209 KB): one block an SM, whose split,
+//   products and softmax run one after another, only the TMA ring
+//   overlapping them;
+// - the rest is the bf16 kernels': online softmax in base 2 on the
+//   accumulator fragment, per-row column bounds on the tiles that cross a
+//   mask edge, the heaviest tiles first, lse and D per query column in
+//   shared memory for dK/dV. f32 needs no rounding points: p and ds go to
+//   the products as they are, each split into hi and lo.
+
+// A [R rows][C] f32 tile in shared memory, K-major along C: panels of PC =
+// min(C, 32) columns side by side, rows of 64 or 128 bytes in the swizzle
+// of that width (as TMA writes a box of PC columns, and as a TF32 wgmma
+// reads an operand).
+template <int R, int C> struct F32Tile {
+  static constexpr int PC = C < 32 ? C : 32;  // columns per panel
+  static constexpr int ROW = PC * 4;          // bytes per panel row
+  static constexpr int PANEL = R * ROW;       // bytes per panel
+  static constexpr int BYTES = C / PC * PANEL;
+  static constexpr uint32_t SWZ = hopper::swizzle_code(ROW);
+  // Byte offset of columns 8j .. 8j+7, the j-th K step.
+  __host__ __device__ static constexpr uint32_t kstep(int j) {
+    return (j / (PC / 8)) * PANEL + (j % (PC / 8)) * 32;
+  }
+  __device__ static uint64_t desc(uint32_t addr) {
+    return hopper::smem_desc(addr, 16, 8 * ROW, SWZ);
+  }
+  // Byte offset of element (r, c): the 16-byte chunk of c in its row,
+  // XORed with r mod 8 (128-byte rows) or r / 2 mod 4 (64-byte rows).
+  __device__ __forceinline__ static uint32_t offset(uint32_t r, uint32_t c) {
+    const uint32_t x = ROW == 128 ? (r & 7) : ((r >> 1) & 3);
+    return (c / PC) * PANEL + r * ROW + ((((c % PC) >> 2) ^ x) << 4) + (c & 3) * 4;
+  }
+};
+
+// K index of row r of a transposed tile: within each 8, rows 2t and 2t + 1
+// go to t and t + 4 (see a_frags).
+__device__ __forceinline__ int perm8(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+}
+
+// A tile of BYTES bytes split in place: hi over the raw f32 values, lo at
+// the same offsets in `lo` (any layout). Each thread loads all its values
+// before it splits and stores any, so their latencies overlap.
+template <int BYTES>
+__device__ __forceinline__ void split_tile(uint8_t* raw, uint8_t* lo) {
+  constexpr int N = BYTES / 16 / WG;  // float4s a thread
+  static_assert(BYTES % (16 * WG) == 0, "a tile splits evenly over the warpgroup");
+  float4 x[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) x[n] = reinterpret_cast<const float4*>(raw)[n * WG + threadIdx.x];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    uint4 h, l;
+    hopper::split_tf32(x[n].x, h.x, l.x);
+    hopper::split_tf32(x[n].y, h.y, l.y);
+    hopper::split_tf32(x[n].z, h.z, l.z);
+    hopper::split_tf32(x[n].w, h.w, l.w);
+    reinterpret_cast<uint4*>(raw)[n * WG + threadIdx.x] = h;
+    reinterpret_cast<uint4*>(lo)[n * WG + threadIdx.x] = l;
+  }
+}
+
+// A [R][C] tile as TMA wrote it (F32Tile<R, C>) into its transpose's hi and
+// lo halves (F32Tile<C, R>, row r at K index perm8(r)); with NATURAL also
+// split in place (hi over the raw values, lo into nlo). Thread t takes row
+// t % R of the tile (one K index of the transpose) and columns 4 (n WG/R +
+// t/R) .. +3 for n < N: a warp reads 32 consecutive rows at one 16-byte
+// chunk and writes one 128-byte row of the transpose a column, both free
+// of bank conflicts, and every value is loaded before any is stored.
+template <int R, int C, bool NATURAL>
+__device__ __forceinline__ void split_transpose(uint8_t* raw, uint8_t* nlo, uint8_t* th,
+                                                uint8_t* tl) {
+  using GN = F32Tile<R, C>;
+  using GT = F32Tile<C, R>;
+  constexpr int N = R * C / 4 / WG;  // float4s a thread
+  static_assert(WG % R == 0 && N * WG * 4 == R * C, "a tile splits evenly over the warpgroup");
+  const int r = threadIdx.x % R, k = perm8(r);
+  float4 x[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    x[n] = *reinterpret_cast<const float4*>(
+        raw + GN::offset(r, 4 * (n * (WG / R) + (int)threadIdx.x / R)));
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const int c = 4 * (n * (WG / R) + (int)threadIdx.x / R);
+    uint32_t h[4], l[4];
+    hopper::split_tf32(x[n].x, h[0], l[0]);
+    hopper::split_tf32(x[n].y, h[1], l[1]);
+    hopper::split_tf32(x[n].z, h[2], l[2]);
+    hopper::split_tf32(x[n].w, h[3], l[3]);
+    if constexpr (NATURAL) {
+      const uint32_t off = GN::offset(r, c);
+      *reinterpret_cast<uint4*>(raw + off) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(nlo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      *reinterpret_cast<uint32_t*>(th + GT::offset(c + e, k)) = h[e];
+      *reinterpret_cast<uint32_t*>(tl + GT::offset(c + e, k)) = l[e];
+    }
+  }
+}
+
+// The A fragments (hi and lo) of TF32 products from this thread's
+// accumulator fragment x of a [64 x 2 NS] tile, one K step of 8 columns
+// per 4 registers. Accumulator x[4j + 2r + e] is row r, column 8j + 2t + e
+// (t = lane % 4); A register a of step j is row a & 1, K index t + 4 (a >>
+// 1). So registers (x[4j], x[4j + 2], x[4j + 1], x[4j + 3]) put column 8j +
+// 2t at K index t and 8j + 2t + 1 at t + 4, where perm8 stores the B
+// operand's rows.
+template <int NS>
+__device__ __forceinline__ void a_frags(const float (&x)[NS], uint32_t (&hi)[NS],
+                                        uint32_t (&lo)[NS]) {
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      hopper::split_tf32(x[4 * j + (a == 1 ? 2 : a == 2 ? 1 : a)], hi[4 * j + a], lo[4 * j + a]);
+}
+
+// Keys per tile of the f32 forward: 32 keeps it at 88 KB of shared memory
+// at d 64, two blocks an SM (at 64 keys, 144 KB and one block an SM, it
+// took a quarter longer at GPT-2 small's shape on an H100).
+constexpr int BKF = 32;
+
+// The f32 forward of one 64-row q tile, walking its live K tiles (replaces
+// _fa_kernel / _kernel_nolse for f32; design in the note above).
+template <int D, bool LSE>
+__global__ void __launch_bounds__(WG)
+fa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                   float* __restrict__ lse, int H, int Sq, int Sk, float scale, int causal,
+                   int window) {
+  using GQ = F32Tile<BQ, D>;   // Q: raw, then hi in place
+  using GK = F32Tile<BKF, D>;  // a K or V tile as TMA writes it
+  using GV = F32Tile<D, BKF>;  // V^T, keys at perm8
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sQ = (base + 1023u) & ~1023u;
+  const uint32_t sQlo = sQ + GQ::BYTES;
+  const uint32_t sK = sQlo + GQ::BYTES;          // stage st at sK + st * GK::BYTES
+  const uint32_t sV = sK + STAGES * GK::BYTES;   // stage st at sV + st * GK::BYTES
+  const uint32_t sKlo = sV + STAGES * GK::BYTES;
+  const uint32_t sVh = sKlo + GK::BYTES;
+  const uint32_t sVl = sVh + GV::BYTES;
+  const uint32_t bar_q = sVl + GV::BYTES;
+  const uint32_t bar_kv = bar_q + 8;             // stage st at bar_kv + 8 * st
+  auto at = [&](uint32_t a) { return smem_raw + (a - base); };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // most live K tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int nk = (Sk + BKF - 1) / BKF;
+  int kt_lo = 0, kt_hi = nk;
+  if (causal) {
+    kt_hi = min(nk, (min(q0 + BQ, Sq) - 1) / BKF + 1);
+    if (window > 0) kt_lo = max(0, q0 - (window - 1)) / BKF;
+  }
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) mbar_init(bar_kv + 8 * st, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Issued by thread 0: K and V tile kt into ring stage st.
+  auto load_kv = [&](int kt, int st) {
+    mbar_expect_tx(bar_kv + 8 * st, 2 * GK::BYTES);
+    for (int p = 0; p < D / GK::PC; ++p) {
+      tma_load_4d(sK + st * GK::BYTES + p * GK::PANEL, &tk, bar_kv + 8 * st, p * GK::PC, h,
+                  kt * BKF, b);
+      tma_load_4d(sV + st * GK::BYTES + p * GK::PANEL, &tv, bar_kv + 8 * st, p * GK::PC, h,
+                  kt * BKF, b);
+    }
+  };
+  if (tid == 0 && kt_lo < kt_hi) {
+    mbar_expect_tx(bar_q, GQ::BYTES);
+    for (int p = 0; p < D / GQ::PC; ++p)
+      tma_load_4d(sQ + p * GQ::PANEL, &tq, bar_q, p * GQ::PC, h, q0, b);
+    load_kv(kt_lo, 0);
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int qr = q0 + warp * 16 + (lane >> 2);  // query position of this thread's row 0
+  const int c0 = 2 * (lane & 3);                // this thread's first column in 8
+  const float scale_log2 = scale * kLog2e;
+  int lo[2], hi[2];                             // live columns of a masked tile
+
+  if (kt_lo < kt_hi) {
+    mbar_wait(bar_q, 0);
+    split_tile<GQ::BYTES>(at(sQ), at(sQlo));  // fenced with the first K/V tile's split
+  }
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int it = kt - kt_lo, st = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    // The other stage was last read in the previous tile, which every warp
+    // has finished (the barrier at the end of the loop).
+    if (tid == 0 && kt + 1 < kt_hi) load_kv(kt + 1, (it + 1) % STAGES);
+    const int k0 = kt * BKF;
+    const uint32_t kst = sK + st * GK::BYTES;
+
+    mbar_wait(bar_kv + 8 * st, parity);
+    split_tile<GK::BYTES>(at(kst), at(sKlo));
+    split_transpose<BKF, D, false>(at(sV + st * GK::BYTES), nullptr, at(sVh), at(sVl));
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[BKF / 2];
+#pragma unroll
+    for (int i = 0; i < BKF / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)  // S = Q K^T: Q_lo K_hi, then Q_hi K_lo, then Q_hi K_hi
+      WgmmaTf32SS<BKF>::run(s, GQ::desc(sQlo + GQ::kstep(j)), GK::desc(kst + GK::kstep(j)),
+                            j > 0);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BKF>::run(s, GQ::desc(sQ + GQ::kstep(j)), GK::desc(sKlo + GK::kstep(j)), 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BKF>::run(s, GQ::desc(sQ + GQ::kstep(j)), GK::desc(kst + GK::kstep(j)), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    float corr[2];
+    const bool full =
+        k0 + BKF <= Sk && q0 + BQ <= Sq &&
+        (!causal || (k0 + BKF - 1 <= q0 && (window <= 0 || q0 + BQ - 1 - k0 < window)));
+    if (full) {
+      softmax_tile<false, BKF / 2>(s, m, l, corr, lo, hi, scale_log2);
+    } else {
+      // live columns of each row, relative to this thread's column c0 (as
+      // in fa_fwd_wgmma_kernel)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = qr + 8 * r;
+        hi[r] = (qp < Sq ? (causal ? min(qp, Sk - 1) : Sk - 1) : -1) - k0 - c0;
+        lo[r] = (causal && window > 0 ? qp - window + 1 : 0) - k0 - c0;
+      }
+      softmax_tile<true, BKF / 2>(s, m, l, corr, lo, hi, scale_log2);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    uint32_t ph[BKF / 2], pl[BKF / 2];  // P as the A fragments of P V
+    a_frags<BKF / 2>(s, ph, pl);
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BKF / 8; ++j)  // O += P V, 8 keys a step: P_lo V_hi, P_hi V_lo, P_hi V_hi
+      WgmmaTf32RS<D>::run(acc, pl + 4 * j, GV::desc(sVh + GV::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BKF / 8; ++j)
+      WgmmaTf32RS<D>::run(acc, ph + 4 * j, GV::desc(sVl + GV::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BKF / 8; ++j)
+      WgmmaTf32RS<D>::run(acc, ph + 4 * j, GV::desc(sVh + GV::kstep(j)));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    __syncthreads();  // stage st and the split tiles are free
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr + 8 * r;
+    if (qp >= Sq) continue;
+    const float safe_l = l[r] == 0.f ? 1.f : l[r];
+    float* orow = o + ((size_t)(b * Sq + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(orow + 8 * i) =
+          make_float2(acc[i * 4 + r * 2] / safe_l, acc[i * 4 + r * 2 + 1] / safe_l);
+    if (LSE && (lane & 3) == 0)
+      lse[(size_t)bh * Sq + qp] = l[r] == 0.f ? kBig : m[r] * kLn2 + logf(safe_l);
+  }
+}
+
+// Queries per tile of the f32 dK/dV kernel: 16 at d 128 keeps its shared
+// memory within the SM's.
+template <int D> __host__ __device__ constexpr int f32_dkv_bn() { return D == 128 ? 16 : 64; }
+
+// dK and dV of one 64-row K tile in f32, walking its live Q tiles with
+// transposed score tiles (replaces _fa_bwd_dkv_kernel for f32; design in
+// the note above).
+template <int D>
+__global__ void __launch_bounds__(WG)
+fa_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                       const float* __restrict__ dvec, float* __restrict__ dk,
+                       float* __restrict__ dv, int H, int Sq, int Sk, float scale, int causal,
+                       int window) {
+  constexpr int BN = f32_dkv_bn<D>();
+  using GK = F32Tile<BK, D>;  // K, V: raw, then hi in place
+  using GQ = F32Tile<BN, D>;  // a Q or dO tile as TMA writes it
+  using GT = F32Tile<D, BN>;  // Q^T, dO^T: queries at perm8
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sK = (base + 1023u) & ~1023u;
+  const uint32_t sKlo = sK + GK::BYTES;
+  const uint32_t sV = sKlo + GK::BYTES;
+  const uint32_t sVlo = sV + GK::BYTES;
+  const uint32_t sQ = sVlo + GK::BYTES;             // stage st at sQ + st * GQ::BYTES
+  const uint32_t sDO = sQ + STAGES * GQ::BYTES;     // stage st at sDO + st * GQ::BYTES
+  const uint32_t sQlo = sDO + STAGES * GQ::BYTES;
+  const uint32_t sDOlo = sQlo + GQ::BYTES;
+  const uint32_t sQth = sDOlo + GQ::BYTES;
+  const uint32_t sQtl = sQth + GT::BYTES;
+  const uint32_t sDth = sQtl + GT::BYTES;
+  const uint32_t sDtl = sDth + GT::BYTES;
+  const uint32_t sRows = sDtl + GT::BYTES;          // f32 [STAGES][lse2, D][BN]
+  const uint32_t bar_kv = sRows + STAGES * 2 * BN * 4;
+  const uint32_t bar_q = bar_kv + 8;                // Q and dO, stage st at bar_q + 8 * st
+  auto at = [&](uint32_t a) { return smem_raw + (a - base); };
+  float* rows = reinterpret_cast<float*>(at(sRows));
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = BK * blockIdx.y;  // the first keys, live for the most queries, first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int nq = (Sq + BN - 1) / BN;
+  int qt_lo = 0, qt_hi = nq;
+  if (causal) {
+    qt_lo = k0 / BN;  // first Q tile holding a q_pos >= k0
+    if (window > 0) qt_hi = min(nq, (min(k0 + BK, Sk) - 1 + window - 1) / BN + 1);
+  }
+
+  // Thread c < BN reads lse (as lse2) and thread 64 + c reads D of query
+  // column c of tile qt; rows past Sq read as lse = +1e30, D = 0.
+  const int rc = tid & 63;
+  auto row_value = [&](int qt) {
+    const int qp = qt * BN + rc;
+    if (tid < 64) return (qp < Sq ? lse[(size_t)bh * Sq + qp] : kBig) * kLog2e;
+    return qp < Sq ? dvec[(size_t)bh * Sq + qp] : 0.f;
+  };
+  auto put_row = [&](int st, float x) {
+    if (rc < BN) rows[(2 * st + (tid >> 6)) * BN + rc] = x;
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < STAGES; ++st) mbar_init(bar_q + 8 * st, 1);
+    mbar_fence_init();
+  }
+  if (qt_lo < qt_hi) put_row(0, row_value(qt_lo));
+  __syncthreads();
+
+  // Issued by thread 0: Q and dO tile qt into ring stage st.
+  auto load_qdo = [&](int qt, int st) {
+    mbar_expect_tx(bar_q + 8 * st, 2 * GQ::BYTES);
+    for (int p = 0; p < D / GQ::PC; ++p) {
+      tma_load_4d(sQ + st * GQ::BYTES + p * GQ::PANEL, &tq, bar_q + 8 * st, p * GQ::PC, h,
+                  qt * BN, b);
+      tma_load_4d(sDO + st * GQ::BYTES + p * GQ::PANEL, &tdo, bar_q + 8 * st, p * GQ::PC, h,
+                  qt * BN, b);
+    }
+  };
+  if (tid == 0 && qt_lo < qt_hi) {
+    mbar_expect_tx(bar_kv, 2 * GK::BYTES);
+    for (int p = 0; p < D / GK::PC; ++p) {
+      tma_load_4d(sK + p * GK::PANEL, &tk, bar_kv, p * GK::PC, h, k0, b);
+      tma_load_4d(sV + p * GK::PANEL, &tv, bar_kv, p * GK::PC, h, k0, b);
+    }
+    load_qdo(qt_lo, 0);
+  }
+
+  const int kr = k0 + warp * 16 + (lane >> 2);  // key position of this thread's row 0
+  const int c0 = 2 * (lane & 3);                // this thread's first column in 8
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  int lo[2], hi[2];  // live columns of a masked tile
+
+  if (qt_lo < qt_hi) {
+    mbar_wait(bar_kv, 0);
+    split_tile<GK::BYTES>(at(sK), at(sKlo));  // fenced with the first Q/dO tile's split
+    split_tile<GK::BYTES>(at(sV), at(sVlo));
+  }
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int it = qt - qt_lo, st = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    // The other stage (tiles and rows) was last read in the previous tile,
+    // which every warp has finished (the barrier at the end of the loop).
+    if (tid == 0 && qt + 1 < qt_hi) load_qdo(qt + 1, (it + 1) % STAGES);
+    const float next_row = qt + 1 < qt_hi ? row_value(qt + 1) : 0.f;
+    const int q0 = qt * BN;
+    const uint32_t qst = sQ + st * GQ::BYTES, dost = sDO + st * GQ::BYTES;
+
+    mbar_wait(bar_q + 8 * st, parity);
+    split_transpose<BN, D, true>(at(qst), at(sQlo), at(sQth), at(sQtl));
+    split_transpose<BN, D, true>(at(dost), at(sDOlo), at(sDth), at(sDtl));
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[BN / 2], dp[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)  // S^T = K Q^T: K_lo Q_hi, K_hi Q_lo, K_hi Q_hi
+      WgmmaTf32SS<BN>::run(s, GK::desc(sKlo + GK::kstep(j)), GQ::desc(qst + GQ::kstep(j)), j > 0);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BN>::run(s, GK::desc(sK + GK::kstep(j)), GQ::desc(sQlo + GQ::kstep(j)), 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BN>::run(s, GK::desc(sK + GK::kstep(j)), GQ::desc(qst + GQ::kstep(j)), 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)  // dP^T = V dO^T, the same three
+      WgmmaTf32SS<BN>::run(dp, GK::desc(sVlo + GK::kstep(j)), GQ::desc(dost + GQ::kstep(j)),
+                           j > 0);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BN>::run(dp, GK::desc(sV + GK::kstep(j)), GQ::desc(sDOlo + GQ::kstep(j)), 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BN>::run(dp, GK::desc(sV + GK::kstep(j)), GQ::desc(dost + GQ::kstep(j)), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // Rows past Sk need no mask: they are never written, and rows of a
+    // product do not mix.
+    const float* st_rows = rows + 2 * st * BN;
+    const bool inner = q0 + BN <= Sq && (!causal || (q0 >= k0 + BK - 1 &&
+                                                    (window <= 0 || q0 + BN - 1 - k0 < window)));
+    if (inner) {
+      p_ds_cols<BN, false>(s, dp, st_rows, c0, lo, hi, scale_log2, scale);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kp = kr + 8 * r;
+        lo[r] = (causal ? kp : 0) - q0 - c0;
+        hi[r] = (causal && window > 0 ? min(Sq - 1, kp + window - 1) : Sq - 1) - q0 - c0;
+      }
+      p_ds_cols<BN, true>(s, dp, st_rows, c0, lo, hi, scale_log2, scale);
+    }
+
+    // dV += P^T dO, 8 queries a step: P_lo dO_hi, P_hi dO_lo, P_hi dO_hi
+    uint32_t ah[BN / 2], al[BN / 2];
+    a_frags<BN / 2>(s, ah, al);
+    fence_regs(acc_v);
+    fence_regs(ah);
+    fence_regs(al);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      WgmmaTf32RS<D>::run(acc_v, al + 4 * j, GT::desc(sDth + GT::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      WgmmaTf32RS<D>::run(acc_v, ah + 4 * j, GT::desc(sDtl + GT::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      WgmmaTf32RS<D>::run(acc_v, ah + 4 * j, GT::desc(sDth + GT::kstep(j)));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_v);
+    fence_regs(ah);
+    fence_regs(al);
+
+    // dK += dS^T Q, the same three with dS^T (in dp) and Q^T
+    a_frags<BN / 2>(dp, ah, al);
+    fence_regs(acc_k);
+    fence_regs(ah);
+    fence_regs(al);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      WgmmaTf32RS<D>::run(acc_k, al + 4 * j, GT::desc(sQth + GT::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      WgmmaTf32RS<D>::run(acc_k, ah + 4 * j, GT::desc(sQtl + GT::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      WgmmaTf32RS<D>::run(acc_k, ah + 4 * j, GT::desc(sQth + GT::kstep(j)));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_k);
+    fence_regs(ah);
+    fence_regs(al);
+    if (qt + 1 < qt_hi) put_row((it + 1) % STAGES, next_row);
+    __syncthreads();  // stage st, its rows and the split tiles are free
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = kr + 8 * r;
+    if (kp >= Sk) continue;
+    const size_t off = ((size_t)(b * Sk + kp) * H + h) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<float2*>(dk + off + 8 * i) =
+          make_float2(acc_k[i * 4 + r * 2], acc_k[i * 4 + r * 2 + 1]);
+      *reinterpret_cast<float2*>(dv + off + 8 * i) =
+          make_float2(acc_v[i * 4 + r * 2], acc_v[i * 4 + r * 2 + 1]);
+    }
+  }
+}
+
 // Raises a kernel's dynamic shared-memory limit once per device: the first
 // launch of each instantiation on a device pays for it, later ones do not.
 struct Prepared {
@@ -1198,20 +1497,30 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                 int Sq, int Sk, float scale, int causal, int window, cudaStream_t stream) {
   static Prepared with_lse, without_lse;
   cudaError_t err;
+  CUtensorMap tq, tk, tv;
+  // x walks (batch, head) fastest, so each wave takes one q tile of every
+  // head before the next, lighter one (the kernels reverse y).
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   if constexpr (std::is_same<T, float>::value) {
-    constexpr int LD = D + 1;
-    const size_t smem = sizeof(float) * (BQ * LD + 2 * BK * LD + BQ * (BK + 1));
-    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+    using GQ = F32Tile<BQ, D>;
+    using GK = F32Tile<BKF, D>;
+    // Q and its lo, the K/V ring, K's lo, V^T's hi and lo, 1024 bytes to
+    // align them to the swizzle atom, the mbarriers
+    constexpr size_t smem = 2 * GQ::BYTES + 2 * STAGES * GK::BYTES + GK::BYTES +
+                            2 * F32Tile<D, BKF>::BYTES + 1024 + 8 * (1 + STAGES);
+    const CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    if ((err = hopper::encode_bshd(&tq, q, dt, B, Sq, H, D, GQ::PC, BQ)) != cudaSuccess ||
+        (err = hopper::encode_bshd(&tk, k, dt, B, Sk, H, D, GK::PC, BKF)) != cudaSuccess ||
+        (err = hopper::encode_bshd(&tv, v, dt, B, Sk, H, D, GK::PC, BKF)) != cudaSuccess)
+      return err;
     if (lse != nullptr) {
-      if ((err = with_lse(fa_fwd_kernel<T, D, true>, smem)) != cudaSuccess) return err;
-      fa_fwd_kernel<T, D, true><<<grid, NT, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, H, Sq, Sk, scale, causal,
-          window);
+      if ((err = with_lse(fa_fwd_tf32_kernel<D, true>, smem)) != cudaSuccess) return err;
+      fa_fwd_tf32_kernel<D, true><<<grid, WG, smem, stream>>>(tq, tk, tv, (float*)o, (float*)lse,
+                                                              H, Sq, Sk, scale, causal, window);
     } else {
-      if ((err = without_lse(fa_fwd_kernel<T, D, false>, smem)) != cudaSuccess) return err;
-      fa_fwd_kernel<T, D, false><<<grid, NT, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (T*)o, nullptr, H, Sq, Sk, scale, causal,
-          window);
+      if ((err = without_lse(fa_fwd_tf32_kernel<D, false>, smem)) != cudaSuccess) return err;
+      fa_fwd_tf32_kernel<D, false><<<grid, WG, smem, stream>>>(tq, tk, tv, (float*)o, nullptr, H,
+                                                               Sq, Sk, scale, causal, window);
     }
   } else {
     using G = Tile<D>;
@@ -1221,14 +1530,10 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
     const CUtensorMapDataType dt = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    CUtensorMap tq, tk, tv;
     if ((err = hopper::encode_bshd(&tq, q, dt, B, Sq, H, D, G::DP, BQ)) != cudaSuccess ||
         (err = hopper::encode_bshd(&tk, k, dt, B, Sk, H, D, G::DP, BK)) != cudaSuccess ||
         (err = hopper::encode_bshd(&tv, v, dt, B, Sk, H, D, G::DP, BK)) != cudaSuccess)
       return err;
-    // x walks (batch, head) fastest, so each wave takes one q tile of every
-    // head before the next, lighter one (the kernel reverses y).
-    const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
     if (lse != nullptr) {
       if ((err = with_lse(fa_fwd_wgmma_kernel<T, D, true>, smem)) != cudaSuccess) return err;
       fa_fwd_wgmma_kernel<T, D, true><<<grid, WG, smem, stream>>>(
@@ -1244,12 +1549,15 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // Tensor maps of q and dO (boxes of q_rows positions) and of k and v (boxes
-// of BK positions) for the tensor-core backward.
+// of BK positions) for the tensor-core backward, in panels of the tiles'
+// width.
 template <typename T, int D>
 cudaError_t encode_qkvdo(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
                          const void* dout, int B, int H, int Sq, int Sk, int q_rows) {
-  constexpr int DP = Tile<D>::DP;
-  const CUtensorMapDataType dt = std::is_same<T, __half>::value
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int DP = F32 ? F32Tile<BK, D>::PC : Tile<D>::DP;
+  const CUtensorMapDataType dt = F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : std::is_same<T, __half>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   cudaError_t err;
@@ -1298,26 +1606,29 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
                     int Sk, float scale, int causal, int window, cudaStream_t stream) {
   static Prepared prepared;
   cudaError_t err;
+  CUtensorMap m[4];
+  // x walks (batch, head) fastest, so each wave takes one K tile of every
+  // head before the next, lighter one.
+  const dim3 grid(B * H, (Sk + BK - 1) / BK);
   if constexpr (std::is_same<T, float>::value) {
-    constexpr int LD = D + 1;
-    const size_t smem =
-        sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BK * (BQ + 1) + 2 * BQ);
-    const dim3 grid((Sk + BK - 1) / BK, B * H);
-    if ((err = prepared(fa_bwd_dkv_kernel<T, D>, smem)) != cudaSuccess) return err;
-    fa_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-        (const float*)dvec, (T*)dk, (T*)dv, H, Sq, Sk, scale, causal, window);
+    constexpr int BN = f32_dkv_bn<D>();
+    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN)) != cudaSuccess) return err;
+    // K, V and their lo, the Q/dO ring, their lo, their transposes' hi and
+    // lo, the ring's lse/D rows, 1024 bytes of alignment, the mbarriers
+    constexpr size_t smem = 4 * F32Tile<BK, D>::BYTES + (2 * STAGES + 2) * F32Tile<BN, D>::BYTES +
+                            4 * F32Tile<D, BN>::BYTES + STAGES * 2 * BN * sizeof(float) + 1024 +
+                            8 * (1 + STAGES);
+    if ((err = prepared(fa_bwd_dkv_tf32_kernel<D>, smem)) != cudaSuccess) return err;
+    fa_bwd_dkv_tf32_kernel<D><<<grid, WG, smem, stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (float*)dk, (float*)dv, H,
+        Sq, Sk, scale, causal, window);
   } else {
     constexpr int BN = dkv_bn<D>();
-    CUtensorMap m[4];
     if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN)) != cudaSuccess) return err;
     // K, V + the Q/dO ring + its lse/D rows, 1024 bytes of alignment, the
     // mbarriers
     constexpr size_t smem = 2 * Tile<D>::BYTES + 2 * STAGES * Tile<D, BN>::BYTES +
                             STAGES * 2 * BN * sizeof(float) + 1024 + 8 * (1 + 2 * STAGES);
-    // x walks (batch, head) fastest, so each wave takes one K tile of every
-    // head before the next, lighter one.
-    const dim3 grid(B * H, (Sk + BK - 1) / BK);
     if ((err = prepared(fa_bwd_dkv_wgmma_kernel<T, D>, smem)) != cudaSuccess) return err;
     fa_bwd_dkv_wgmma_kernel<T, D><<<grid, WG, smem, stream>>>(
         m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (T*)dk, (T*)dv, H, Sq, Sk,

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tile loads through a tensor map, shared-memory matrix
-// descriptors, and warpgroup matrix multiplies (wgmma) in bf16 / f16 with
-// f32 accumulators. Inline PTX only; no CUTLASS, no -lcuda (the driver's
-// cuTensorMapEncodeTiled is fetched through the runtime at first use).
+// descriptors, and warpgroup matrix multiplies (wgmma) in bf16 / f16 and
+// in TF32 with f32 accumulators. Inline PTX only; no CUTLASS, no -lcuda
+// (cuTensorMapEncodeTiled, a libcuda entry point, is fetched through the
+// runtime at first use).
 //
-// Tiles in shared memory are [rows][cols] panels of 16-bit values whose
-// rows are 32, 64 or 128 bytes long, stored in the swizzle of that width
-// (TMA writes them so, wgmma reads them so): one panel of at most 64
-// columns, or several side by side for wider tiles.
+// Tiles in shared memory are [rows][cols] panels whose rows are 32, 64 or
+// 128 bytes long, stored in the swizzle of that width (TMA writes them so,
+// wgmma reads them so): one panel, or several side by side for wider
+// tiles.
 
 #pragma once
 
@@ -73,6 +74,13 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+
+// Orders this thread's generic-proxy accesses to shared memory (stores
+// that a wgmma will read, reads of a buffer TMA will overwrite) before the
+// async proxy's; a __syncthreads() after it extends that to the block.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // --- wgmma -------------------------------------------------------------------
@@ -207,6 +215,63 @@ template <typename T, int N> struct WgmmaRS;
 BTT_WGMMA_BOTH(__nv_bfloat16, "bf16")
 BTT_WGMMA_BOTH(__half, "f16")
 
+// x rounded to TF32 (cvt.rna: to nearest, ties away from zero, on the 13
+// low mantissa bits, which come out zero): a wgmma TF32 operand.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x as hi + lo, both TF32: hi = rna(x), lo = rna(x - hi) (x - hi is exact
+// in f32). hi lo' + lo hi' + hi hi' holds a product to about 2^-21 of
+// |x x'| (the lo lo' term, 2^-22, is dropped): CUTLASS's "fast F32".
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// TF32 products with f32 accumulators, m64nNk8. TF32 operands in shared
+// memory are K-major only (the transpose immediates exist for 16-bit
+// types alone), so neither form takes them.
+// D[64 x N] (+)= A[64 x 8] B[8 x N], both operands in shared memory.
+template <int N> struct WgmmaTf32SS;
+// D[64 x N] += A[64 x 8] B[8 x N], A from registers: a[0] row g, column
+// t; a[1] row g + 8, column t; a[2] row g, column t + 4; a[3] row g + 8,
+// column t + 4 (g = 16 warp + lane / 4, t = lane % 4).
+template <int N> struct WgmmaTf32RS;
+
+#define BTT_TF32_SS(N, ACC, DA, DB, P)                                                     \
+  template <> struct WgmmaTf32SS<N> {                                                      \
+    __device__ __forceinline__ static void run(float* d, uint64_t da, uint64_t db,         \
+                                               int accumulate) {                           \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P                                   \
+                   ", 0;\nwgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " ACC     \
+                   ", " DA ", " DB ", p, 1, 1;\n}\n"                                        \
+                   : BTT_OUT##N                                                             \
+                   : "l"(da), "l"(db), "r"(accumulate));                                    \
+    }                                                                                       \
+  };
+#define BTT_TF32_RS(N, ACC, A, DB, P)                                                      \
+  template <> struct WgmmaTf32RS<N> {                                                      \
+    __device__ __forceinline__ static void run(float* d, const uint32_t* a, uint64_t db) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P                                   \
+                   ", 0;\nwgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " ACC     \
+                   ", " A ", " DB ", p, 1, 1;\n}\n"                                         \
+                   : BTT_OUT##N                                                             \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));         \
+    }                                                                                       \
+  };
+
+BTT_TF32_SS(16, BTT_ACC16, "%8", "%9", "%10")
+BTT_TF32_SS(32, BTT_ACC32, "%16", "%17", "%18")
+BTT_TF32_SS(64, BTT_ACC64, "%32", "%33", "%34")
+BTT_TF32_SS(128, BTT_ACC128, "%64", "%65", "%66")
+BTT_TF32_RS(16, BTT_ACC16, "{%8, %9, %10, %11}", "%12", "%13")
+BTT_TF32_RS(32, BTT_ACC32, "{%16, %17, %18, %19}", "%20", "%21")
+BTT_TF32_RS(64, BTT_ACC64, "{%32, %33, %34, %35}", "%36", "%37")
+BTT_TF32_RS(128, BTT_ACC128, "{%64, %65, %66, %67}", "%68", "%69")
+
 // --- host: tensor maps -------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -227,19 +292,20 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major [B, S, H, D] tensor of 16-bit values, read in
-// boxes of `rows` consecutive positions of one (batch, head) and `cols`
-// columns (32, 64 or 128 bytes: the swizzle of that width). Rows past S
-// read as zeros.
+// Tensor map of a row-major [B, S, H, D] tensor of 16-bit values or f32,
+// read in boxes of `rows` consecutive positions of one (batch, head) and
+// `cols` columns (32, 64 or 128 bytes: the swizzle of that width). Rows
+// past S read as zeros.
 inline cudaError_t encode_bshd(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype, int B,
                                int S, int H, int D, int cols, int rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorMisalignedAddress;
-  const int row_bytes = cols * 2;
+  const cuuint64_t size = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;  // bytes a value
+  const int row_bytes = cols * (int)size;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * size, (cuuint64_t)H * D * size,
+                                 (cuuint64_t)S * H * D * size};
   const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B

@@ -13,14 +13,16 @@ wrapper       CUDA kernel                            replaces
 ============  =====================================  ====================
 ``fwd_lse``   ``fa_fwd_wgmma_kernel<T, D, true>``    ``_fa_kernel``
               (bf16/f16, tensor cores),
-              ``fa_fwd_kernel<float, D, true>``
+              ``fa_fwd_tf32_kernel<D, true>`` (f32,
+              three TF32 products a product)
 ``fwd``       ``fa_fwd_wgmma_kernel<T, D, false>``,  ``_kernel_nolse``
-              ``fa_fwd_kernel<float, D, false>``
+              ``fa_fwd_tf32_kernel<D, false>``
 ``bwd_dq``    ``fa_bwd_dq_wgmma_kernel<T, D>``       ``_fa_bwd_dq_kernel``
               (bf16/f16, tensor cores),
-              ``fa_bwd_dq_kernel<float, D>``
+              ``fa_bwd_dq_kernel<float, D>`` (f32
+              FMAs)
 ``bwd_dkv``   ``fa_bwd_dkv_wgmma_kernel<T, D>``,     ``_fa_bwd_dkv_kernel``
-              ``fa_bwd_dkv_kernel<float, D>``
+              ``fa_bwd_dkv_tf32_kernel<D>``
 ============  =====================================  ====================
 
 Each wrapper runs its plain PyTorch version (``_fwd_reference``,

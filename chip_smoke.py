@@ -7,19 +7,22 @@ Phases, each of which raises on failure:
 
 1. build: the flash-attention kernels (nvcc, sm_90a) and the C++ PS core
    (g++), both from this checkout's sources, in parallel, into
-   build/byteps_tpu_torch/; the SASS of each bf16/f16 instantiation of
-   the tensor-core kernels (forward, dQ, dK/dV) must hold HGMMA (wgmma)
+   build/byteps_tpu_torch/; the SASS of each instantiation of the
+   tensor-core kernels (bf16/f16 forward, dQ, dK/dV; f32 forward and
+   dK/dV, three TF32 products a product) must hold HGMMA (wgmma)
    instructions;
 2. kernels: each of the four CUDA kernels against its plain PyTorch
    version on the card, at the attention shapes of the main paths (GPT-2
-   small: b 8, s 512, h 12, d 64, bf16, causal; BERT-Large: b 32, s 128,
-   h 16, d 64, bf16, non-causal; Llama-1B: b 4, s 2048, h 32, d 64, bf16,
-   causal; GPT-2 medium: b 8, s 512, h 16, d 64, bf16, causal), on f32 cases (unaligned s 600, rectangular causal 100 x 260,
-   sliding window 64 at s 300) and on the same shape classes in bf16 and
-   f16 (plus non-causal 96 x 96); at the main paths' shapes each timed
-   beside its plain version, PyTorch's scaled_dot_product_attention, and
-   its bound (device time from CUDA graph replays, the kernels and SDPA's
-   forward and backward in turns over 5 windows);
+   small: b 8, s 512, h 12, d 64, bf16, causal, and the same in f32;
+   BERT-Large: b 32, s 128, h 16, d 64, bf16, non-causal; Llama-1B: b 4,
+   s 2048, h 32, d 64, bf16, causal; GPT-2 medium: b 8, s 512, h 16, d
+   64, bf16, causal), on f32 cases (unaligned s 600, rectangular causal
+   100 x 260, sliding window 64 at s 300) and on the same shape classes
+   in bf16 and f16 (plus non-causal 96 x 96); at the main paths' shapes
+   each timed beside its plain version, PyTorch's
+   scaled_dot_product_attention (in f32 its memory-efficient backend,
+   pinned), and its bound (device time from CUDA graph replays, the
+   kernels and SDPA's forward and backward in turns over 5 windows);
 3. collective mode: GPT2Small(attn_impl="flash") at full width trains a
    few steps of 8 x 512 tokens through init -> make_train_step with
    AdamW, then runs one evaluation forward under no_grad; the launch
@@ -131,7 +134,14 @@ Phases, each of which raises on failure:
    losses must equal (a)'s to the bit, the later ones stay within
    ``_codec_loss_bounds``, and (b)'s four paths equal each other to the
    bit. The kernel phase checks and times the kernels at GPT-2 medium's
-   shape ([8, 512, 16, 64]) too.
+   shape ([8, 512, 16, 64]) too;
+13. (run right after phase 12) GPT-2 small trained in f32 (see
+   ``f32_phase``): GPT2Small(dtype=float32, attn_impl="flash"), seed-0
+   weights, phase 3's tokens, 3 collective AdamW steps through the f32
+   kernels (the forward and dK/dV on the tensor cores as three TF32
+   products, dQ on FMAs), held to the same weights under plain attention
+   in f32 (step 1's loss and the evaluation logits, within a bound from
+   limit()'s f32 terms), then a profiled step.
 
 Stdout ends with the kernels line, the card's name and power limit, and
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when CUDA
@@ -157,10 +167,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 STEPS = 4
 SEQ, BATCH = 512, 8
-# H100 SXM published peaks (dense): HBM bytes/s, bf16/fp16 tensor-core and
-# f32 (non-tensor) operations/s.
+# H100 SXM published peaks (dense): HBM bytes/s and matrix-product
+# operations/s. bf16/fp16 on the tensor cores. f32: the least time for
+# products held to f32 accuracy is three TF32 products a product (hi*hi +
+# hi*lo + lo*hi, each operand split into two TF32 halves) at the 495
+# TFLOP/s TF32 rate, which beats the 67 TFLOP/s of f32 FMAs outside the
+# tensor cores; one TF32 product alone keeps 11 bits and is not f32.
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 495e12 / 3}
 
 
 _T0 = time.perf_counter()
@@ -207,9 +221,10 @@ def build_all():
 
 def tensor_core_sass():
     """Registers, spills (the ptxas report) and HGMMA instructions (the
-    SASS, by cuobjdump) of each bf16/f16 instantiation of the tensor-core
-    kernels (forward with and without lse, dQ, dK/dV); raises if one has
-    no HGMMA, i.e. does not run on the tensor cores."""
+    SASS, by cuobjdump) of each instantiation of the tensor-core kernels:
+    bf16/f16 forward with and without lse, dQ and dK/dV, and the f32
+    (three TF32 products) forward with and without lse and dK/dV; raises
+    if one has no HGMMA, i.e. does not run on the tensor cores."""
     import re
 
     from byteps_tpu_torch.ops import _cuda_lib
@@ -219,7 +234,7 @@ def tensor_core_sass():
     kernels = {}
     for m in re.finditer(
             r"Compiling entry function "
-            r"'(\w*fa_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel\w*)'.*?"
+            r"'(\w*fa_(?:fwd|bwd_dq|bwd_dkv)_(?:wgmma|tf32)_kernel\w*)'.*?"
             r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
             r"Used (\d+) registers", report, re.S):
         kernels[m.group(1)] = {"registers": int(m.group(4)),
@@ -238,15 +253,20 @@ def tensor_core_sass():
             kernels[fn]["hgmma"] += 1
     named = {}
     for fn, v in kernels.items():
-        m = re.search(r"(fa_\w+?)_wgmma_kernelI(\w+?)Li(\d+)E(?:Lb([01])E)?",
-                      fn)
-        dtype = "bfloat16" if "bfloat16" in m.group(2) else "float16"
-        lse = f" lse={m.group(4)}" if m.group(4) else ""
-        named[f"{m.group(1)} {dtype} d{m.group(3)}{lse}"] = v
-    # forward: 2 dtypes x 4 head dims x lse or not; dQ and dK/dV: 8 each
-    if len(named) != 32 or not all(v["hgmma"] > 0 for v in named.values()):
-        raise AssertionError(f"tensor-core kernels: expected 32 "
-                             f"instantiations with HGMMA, got {named}")
+        m = re.search(r"(fa_\w+?)_(wgmma|tf32)_kernelI(\w*?)Li(\d+)E"
+                      r"(?:Lb([01])E)?", fn)
+        dtype = ("float32" if m.group(2) == "tf32" else
+                 "bfloat16" if "bfloat16" in m.group(3) else "float16")
+        lse = f" lse={m.group(5)}" if m.group(5) else ""
+        named[f"{m.group(1)}_{m.group(2)} {dtype} d{m.group(4)}{lse}"] = v
+    # bf16/f16: 2 dtypes x 4 head dims x (forward with and without lse,
+    # dQ, dK/dV); f32: 4 head dims x (forward with and without lse, dK/dV)
+    f32 = sum(k.split()[1] == "float32" for k in named)
+    if (len(named) != 44 or f32 != 12
+            or not all(v["hgmma"] > 0 for v in named.values())):
+        raise AssertionError(f"tensor-core kernels: expected 32 bf16/f16 "
+                             f"and 12 f32 instantiations with HGMMA, got "
+                             f"{named}")
     log("tensor-core kernels (ptxas, SASS):", json.dumps(named))
     return named
 
@@ -407,7 +427,9 @@ CASES = [
     ("gpt2_local_ps", 2, SEQ, SEQ, 12, 64, "bfloat16", True, None),
     # GPT-2 medium's data-parallel step (phases 6 and 12)
     ("gpt2_medium", BATCH, SEQ, SEQ, 16, 64, "bfloat16", True, None),
-    # f32: the FMA kernels
+    # GPT-2 small in f32 (phase 13)
+    ("gpt2_f32", BATCH, SEQ, SEQ, 12, 64, "float32", True, None),
+    # f32 on every shape class
     ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
     ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
     ("window64", 1, 300, 300, 2, 16, "float32", True, 64),
@@ -424,17 +446,36 @@ CASES = [
 ]
 # the main paths' shapes, timed beside their plain versions and SDPA
 TIMED = ("gpt2", "bert_large", "llama1b", "ulysses_8192", "tp_gpt2m",
-         "pp_gpt2m", "gpt2_local_ps", "gpt2_medium")
+         "pp_gpt2m", "gpt2_local_ps", "gpt2_medium", "gpt2_f32")
 
 
-def kernel_phase():
+def _sdpa_backend(dtype):
+    """(context, name) for SDPA as the yardstick: its default choice in
+    bf16/f16 (the flash backend), the memory-efficient backend pinned in
+    f32, which the flash backend refuses."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    if dtype == "float32":
+        return (lambda: sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION),
+                "EFFICIENT_ATTENTION (pinned)")
+    return contextlib.nullcontext, "default"
+
+
+def kernel_phase(cases=None):
+    """Each kernel against its plain version on ``cases`` (names; all of
+    CASES by default), the TIMED ones timed. f32 matrix products outside
+    the kernels stay in full f32: ``allow_tf32`` must be False."""
     import torch
     import torch.nn.functional as F
 
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 is set")
+    log("torch.backends.cuda.matmul.allow_tf32 = False")
 
     failures, errors, readings, report = [], {}, {}, {}
     for (case, b, s_q, s_k, h, d, dtype, causal, window) in CASES:
+        if cases is not None and case not in cases:
+            continue
         dt = getattr(torch, dtype)
         g = torch.Generator().manual_seed(1)
 
@@ -504,9 +545,10 @@ def kernel_phase():
             "bwd_dkv": lambda: fa._bwd_dkv_reference(*args),
         }
         qt, kt_, vt = (t.transpose(1, 2) for t in (q, k, v))
+        backend, backend_name = _sdpa_backend(dtype)
 
         def sdpa():
-            with torch.no_grad():
+            with torch.no_grad(), backend():
                 return F.scaled_dot_product_attention(qt, kt_, vt,
                                                       is_causal=causal)
         # SDPA's forward runs once, on the stream the graphs are captured
@@ -515,7 +557,7 @@ def kernel_phase():
         cap.wait_stream(torch.cuda.current_stream())
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt_, vt))
         gout = do.transpose(1, 2)
-        with torch.cuda.stream(cap):
+        with torch.cuda.stream(cap), backend():
             out = F.scaled_dot_product_attention(qg, kg, vg,
                                                  is_causal=causal)
 
@@ -527,8 +569,9 @@ def kernel_phase():
                                  "sdpa_bwd": sdpa_bwd}, stream=cap)
 
         def sdpa_fwd_bwd():
-            o_ = F.scaled_dot_product_attention(qg, kg, vg,
-                                                is_causal=causal)
+            with backend():
+                o_ = F.scaled_dot_product_attention(qg, kg, vg,
+                                                    is_causal=causal)
             torch.autograd.grad(o_, (qg, kg, vg), gout)
         sdpa_both = _time_ms(sdpa_fwd_bwd)
         library = {"fwd_lse": dev["sdpa_fwd"], "fwd": dev["sdpa_fwd"],
@@ -546,6 +589,7 @@ def kernel_phase():
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": library[kname][0],
                 "library_ms_spread": list(library[kname][1:]),
+                "library_backend": backend_name,
                 "tflops": _ops_per_pair(kname) * d * pairs
                 / (ms * 1e-3) / 1e12,
                 "bound_share": bound / ms,
@@ -582,12 +626,12 @@ def _tokens(device, rows=BATCH, seq=SEQ, vocab=50257):
         rng.integers(0, vocab, size=(rows, seq)).astype(np.int64)).to(device)
 
 
-def _model(attn_impl="flash", device=None):
+def _model(attn_impl="flash", device=None, **kw):
     import torch
 
     from byteps_tpu_torch.models import GPT2Small
     return GPT2Small(attn_impl=attn_impl, device=device,
-                     generator=torch.Generator().manual_seed(0))
+                     generator=torch.Generator().manual_seed(0), **kw)
 
 
 def _loss_fn(model, tokens):
@@ -729,9 +773,9 @@ def _profile_step(run):
     busy = sum(families.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
-             for k in ("fa_fwd_wgmma_kernel", "fa_fwd_kernel",
+             for k in ("fa_fwd_wgmma_kernel", "fa_fwd_tf32_kernel",
                        "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel",
-                       "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel")}
+                       "fa_bwd_dq_kernel", "fa_bwd_dkv_tf32_kernel")}
     return {"host_timed_step": host, "device_ms": device_ms,
             "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_union_ms": union_us / 1e3, "device_events": len(spans),
@@ -784,14 +828,19 @@ def _check_eval_launches(label, launches, layers):
         raise AssertionError(f"{label} evaluation launches {launches}")
 
 
-def _profile_lm(label, step, model, batch, times):
+BF16_KERNELS = ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
+                "fa_bwd_dkv_wgmma_kernel")
+F32_KERNELS = ("fa_fwd_tf32_kernel", "fa_bwd_dq_kernel",
+               "fa_bwd_dkv_tf32_kernel")
+
+
+def _profile_lm(label, step, model, batch, times, kernels=BF16_KERNELS):
     """``_profile_step`` of a collective LM step (the breakdown PERF.md
     reports: a profiler that fails, or sees no device time, fails the
-    run); with bf16 activations the forward, dQ and dK/dV must have run
-    on the tensor cores."""
+    run); the forward, dQ and dK/dV must have run as ``kernels`` (with
+    bf16 activations on the tensor cores)."""
     profile = _profile_step(lambda: step(model, batch))
-    for name in ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
-                 "fa_bwd_dkv_wgmma_kernel"):
+    for name in kernels:
         if not profile["flash_kernel_ms"][name] > 0:
             raise AssertionError(f"{label}: profile shows no {name}: "
                                  f"{profile['flash_kernel_ms']}")
@@ -1640,8 +1689,7 @@ def _trace_check(path):
     lo = min(float(e["ts"]) for e in prof)
     hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in prof)
     kernels = {}
-    for name in ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
-                 "fa_bwd_dkv_wgmma_kernel"):
+    for name in BF16_KERNELS:
         kernels[name] = sorted(float(e["ts"]) for e in events
                                if e.get("cat") == "kernel"
                                and name in e.get("name", ""))
@@ -3794,21 +3842,112 @@ def codec_phase():
                          "fwd": evaluation["eval_launches"]["fwd"]}}
 
 
+# --- phase 13: GPT-2 small in f32 --------------------------------------------
+
+F32_STEPS = 3
+# limit()'s f32 terms: the final rounding (eps) and 1e-4 of the magnitude
+# of the terms behind an element
+F32_REL = 2.0 ** -23 + 1e-4
+
+
+def _f32_logit_bound(layers, logits):
+    """Bound on max |flash - full| of the f32 logits of one set of weights:
+    each layer's attention output may move by limit()'s f32 terms, eps +
+    1e-4 of the terms behind it, and the bound carries each layer's share
+    to the logits at unit gain, relative to their magnitude: layers x (eps
+    + 1e-4) x max |logits|. Not fitted: the kernels' own error (three TF32
+    products, ~2^-21 a term, and f32 sums in another order) sits far
+    below those terms."""
+    return layers * F32_REL * logits.abs().max().item()
+
+
+def f32_phase():
+    """13. GPT2Small(dtype=float32, attn_impl="flash") at full width
+    (seed-0 weights, phase 3's 8 x 512 tokens): F32_STEPS collective
+    make_train_step steps with AdamW(1e-4, wd 1e-4), the forward with lse,
+    dQ and dK/dV 12 times a step (the f32 kernels); step 1's loss equal to
+    the same weights' under attn_impl="full" in f32 within twice
+    ``_f32_logit_bound`` (a loss, lse(z) - z_target, moves by at most
+    twice its logits' max change); an evaluation forward (the forward
+    without lse 12 times) whose logits agree with the trained weights
+    under plain attention within ``_f32_logit_bound``; a profiled step.
+    f32 matrix products outside the kernels stay in full f32."""
+    import torch
+
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import lm_loss
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("torch.backends.cuda.matmul.allow_tf32 is set")
+    os.environ["BYTEPS_PS_MODE"] = "collective"
+    bps.init()
+    try:
+        tokens = GPT2.batch(bps.device())
+        ref = GPT2.make("full", dtype=torch.float32)
+        with torch.no_grad():
+            want = ref(tokens)
+            ref_loss = lm_loss(want, tokens).item()
+            loss_bound = 2 * _f32_logit_bound(GPT2.layers, want)
+        del want
+        model, step, _, losses, times, _, launches, peak_gb = _train(
+            "f32", GPT2, steps=F32_STEPS, dtype=torch.float32)
+        if not abs(losses[0] - ref_loss) <= loss_bound:
+            raise AssertionError(f"f32: step-1 loss {losses[0]} against "
+                                 f"plain attention's {ref_loss} (bound "
+                                 f"{loss_bound})")
+        fa.reset_launches()
+        with torch.no_grad():
+            logits = model(tokens)
+        torch.cuda.synchronize()
+        eval_launches = dict(fa.LAUNCHES)
+        _check_eval_launches("f32", eval_launches, GPT2.layers)
+        if (tuple(logits.shape) != (*tokens.shape, GPT2.vocab)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError("f32 evaluation logits: bad shape or "
+                                 "values")
+        ref.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            want = ref(tokens)
+        logit_err = (logits - want).abs().max().item()
+        logit_bound = _f32_logit_bound(GPT2.layers, want)
+        del ref, logits, want
+        if not logit_err <= logit_bound:
+            raise AssertionError(f"f32: flash vs plain attention logits "
+                                 f"differ by {logit_err} (bound "
+                                 f"{logit_bound})")
+        profile = _profile_lm("f32", step, model, tokens, times,
+                              kernels=F32_KERNELS)
+        del model, step
+    finally:
+        bps.shutdown()
+    torch.cuda.empty_cache()
+    flash_ms = sum(profile["flash_kernel_ms"].values())
+    out = {"losses": losses, "step_ms": times,
+           "median_step_ms": _median(times), "peak_gb": peak_gb,
+           "launches": {**launches, "fwd": eval_launches["fwd"]},
+           "step1_loss_plain_attention": ref_loss,
+           "step1_loss_err": abs(losses[0] - ref_loss),
+           "step1_loss_bound": loss_bound, "logit_max_abs_err": logit_err,
+           "logit_bound": logit_bound, "flash_ms": flash_ms,
+           "flash_share_of_device_ms": flash_ms / profile["device_ms"],
+           "profile": profile}
+    log("phase 13 (GPT-2 small, f32):", json.dumps(
+        {k: v for k, v in out.items() if k != "profile"}))
+    return out
+
+
 # --- main ---------------------------------------------------------------------
 
 REPLACES = {
-    # bf16/f16 on the tensor cores; f32 on the FMA kernel
-    "fwd_lse": ("fa_fwd_wgmma_kernel<T,D,true> | "
-                "fa_fwd_kernel<float,D,true>",
+    # name: (bf16/f16 kernel, f32 kernel, the TPU kernel)
+    "fwd_lse": ("fa_fwd_wgmma_kernel<T,D,true>", "fa_fwd_tf32_kernel<D,true>",
                 "byteps_tpu/ops/flash_attention.py:253"),
-    "fwd": ("fa_fwd_wgmma_kernel<T,D,false> | "
-            "fa_fwd_kernel<float,D,false>",
+    "fwd": ("fa_fwd_wgmma_kernel<T,D,false>", "fa_fwd_tf32_kernel<D,false>",
             "byteps_tpu/ops/flash_attention.py:277"),
-    "bwd_dq": ("fa_bwd_dq_wgmma_kernel<T,D> | "
-               "fa_bwd_dq_kernel<float,D>",
+    "bwd_dq": ("fa_bwd_dq_wgmma_kernel<T,D>", "fa_bwd_dq_kernel<float,D>",
                "byteps_tpu/ops/flash_attention.py:463"),
-    "bwd_dkv": ("fa_bwd_dkv_wgmma_kernel<T,D> | "
-                "fa_bwd_dkv_kernel<float,D>",
+    "bwd_dkv": ("fa_bwd_dkv_wgmma_kernel<T,D>", "fa_bwd_dkv_tf32_kernel<D>",
                 "byteps_tpu/ops/flash_attention.py:487"),
 }
 
@@ -3843,6 +3982,7 @@ def main() -> int:
     # phase 12, while this process still holds little of the card: the
     # onebit fleet holds four GPT-2 medium models with their AdamW state
     codec = codec_phase()
+    f32 = f32_phase()
     alone, paths = ps_phase(coll_losses)
     plain = paths.pop("ps")
     images = resnet_phase()
@@ -3889,6 +4029,7 @@ def main() -> int:
         "parallel": par,
         "local_ps": local,
         "codec": codec,
+        "gpt2_small_f32": f32,
         "memory_held_after_phase8_gb": held_gb,
         "sdpa_fwd_bwd_ms": {case: timing[case]["sdpa_fwd_bwd_ms"]
                             for case in TIMED},
@@ -3936,14 +4077,22 @@ def main() -> int:
                        "distributed_optimizer"]["eval_launches"]["fwd"]},
                # phase 12's onebit fleet: the plain step's training steps,
                # and for fwd the evaluation forward
-               "gpt2_medium_onebit": codec["launches"]}
+               "gpt2_medium_onebit": codec["launches"],
+               # phase 13: training steps, and for fwd its evaluation
+               # forward
+               "gpt2_small_f32": f32["launches"]}
     kernels = []
-    for name, (fn, replaces) in REPLACES.items():
+    for name, (fn, fn_f32, replaces) in REPLACES.items():
         kernels.append({
-            "name": f"flash_attention.{name} ({fn})", "route": "cuda",
+            "name": f"flash_attention.{name} ({fn} | {fn_f32})",
+            "route": "cuda",
             "source": "byteps_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": coll_launches[name],
             "max_abs_err": errors[name]["gpt2"], **timing["gpt2"][name],
+            # the f32 kernel at GPT-2's shape and on phase 13's path
+            "f32": {"function": fn_f32, "launches": f32["launches"][name],
+                    "max_abs_err": errors[name]["gpt2_f32"],
+                    **timing["gpt2_f32"][name]},
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "shapes": {case: {"max_abs_err": errors[name][case],
                               **timing[case][name]}
