@@ -7,7 +7,7 @@
 //   fa_fwd_wgmma_kernel<T, D, false>  bf16/f16 <- _kernel_nolse (forward with
 //   fa_fwd_tf32_kernel<D, false>      f32          no residuals)
 //   fa_bwd_dq_wgmma_kernel<T, D>      bf16/f16 <- _fa_bwd_dq_kernel (+ _bwd_recompute,
-//   fa_bwd_dq_kernel<float, D>        f32          _bwd_mask, _bwd_live)
+//   fa_bwd_dq_tf32_kernel<D>          f32          _bwd_mask, _bwd_live)
 //   fa_bwd_dkv_wgmma_kernel<T, D>     bf16/f16 <- _fa_bwd_dkv_kernel
 //   fa_bwd_dkv_tf32_kernel<D>         f32
 //
@@ -44,14 +44,13 @@
 //   needs ~140 registers, leaves room for three blocks, and measured
 //   slower.
 // The bf16/f16 backward kernels follow the same design (their note is
-// above fa_bwd_dq_wgmma_kernel). In f32 the forward and dK/dV run on the
-// tensor cores too, each product as three TF32 products (their note is
-// above fa_fwd_tf32_kernel); f32 dQ (fa_bwd_dq_kernel) does every product
-// as f32 FMAs on the CUDA cores from shared memory. Every product of two
-// bf16/f16 inputs is exact in f32, so those kernels differ from the plain
-// version in the order of their f32 sums and, on the tensor cores, in
-// ex2's last bits (a relative 1e-6 in p, far below its rounding to bf16 or
-// f16); the f32 ones also in the split's 2^-21 a product.
+// above fa_bwd_dq_wgmma_kernel). In f32 all four run on the tensor cores
+// too, each product as three TF32 products (their note is above
+// fa_fwd_tf32_kernel). Every product of two bf16/f16 inputs is exact in
+// f32, so those kernels differ from the plain version in the order of
+// their f32 sums and in ex2's last bits (a relative 1e-6 in p, far below
+// its rounding to bf16 or f16); the f32 ones also in the split's 2^-21 a
+// product.
 //
 // Conventions kept from the TPU kernels: causal mask top-left aligned
 // (q_pos >= k_pos, both from 0, also when seq_q != seq_k); masked logits
@@ -73,46 +72,8 @@ namespace {
 
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // key rows per tile
-constexpr int NT = 256;       // threads per block: 16 row groups x 16 lanes
 constexpr float kNegInf = -1e30f;
 constexpr float kBig = 1e30f;
-
-// Conversions for the FMA kernel (f32 dQ; every other kernel is on the
-// tensor cores).
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// x rounded to T and back: the kernels' counterpart of `.astype(T)`.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
-// Rows [start, start + ROWS) of head (b, h) of a [B, S, H, D] tensor into a
-// [ROWS][LD] f32 tile; rows past S are zero.
-template <typename T, int D, int LD, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int b, int h, int H, int S,
-                                          int start) {
-  for (int i = threadIdx.x; i < ROWS * D; i += NT) {
-    const int r = i / D, c = i % D, s = start + r;
-    dst[r * LD + c] = s < S ? to_f<T>(src[((size_t)(b * S + s) * H + h) * D + c]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool live(int qp, int kp, int Sq, int Sk, int causal, int window) {
-  bool ok = qp < Sq && kp < Sk;
-  if (causal) {
-    ok = ok && qp >= kp;
-    if (window > 0) ok = ok && qp - kp < window;
-  }
-  return ok;
-}
-
-// Thread layout of the FMA kernel: tid = ty * 16 + tx. A thread owns tile
-// rows ty*4 .. ty*4+3, score columns tx + 16*j (j < 4), and output columns
-// tx + 16*c (c < D/16).
 
 // --- the bf16/f16 forward on the tensor cores --------------------------------
 
@@ -287,8 +248,8 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       softmax_tile<false>(s, m, l, corr, lo, hi, scale_log2);
     } else {
       // live columns of each row, relative to this thread's column c0:
-      // key < Sk, and with causal key <= query and query - key < window
-      // (live() as bounds); none past the last query
+      // key < Sk, and with causal key <= query and query - key < window;
+      // none past the last query
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int qp = qr + 8 * r;
@@ -340,137 +301,23 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ dvec, T* __restrict__ dq, int H, int Sq, int Sk,
-                 float scale, int causal, int window) {
-  constexpr int LD = D + 1, LP = BK + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + BQ * LD;
-  float* sK = sDO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sDS = sV + BK * LD;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<T, D, LD, BQ>(sQ, q, b, h, H, Sq, q0);
-  load_tile<T, D, LD, BQ>(sDO, dout, b, h, H, Sq, q0);
-  float row_lse[4], row_d[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    row_lse[i] = qp < Sq ? lse[(size_t)bh * Sq + qp] : kBig;
-    row_d[i] = qp < Sq ? dvec[(size_t)bh * Sq + qp] : 0.f;
-  }
-
-  const int nk = (Sk + BK - 1) / BK;
-  int kt_lo = 0, kt_hi = nk;
-  if (causal) {
-    kt_hi = min(nk, (min(q0 + BQ, Sq) - 1) / BK + 1);
-    if (window > 0) kt_lo = max(0, q0 - (window - 1)) / BK;
-  }
-
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<T, D, LD, BK>(sK, k, b, h, H, Sk, k0);
-    load_tile<T, D, LD, BK>(sV, v, b, h, H, Sk, k0);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], bk[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sQ[(ty * 4 + i) * LD + d];
-        g[i] = sDO[(ty * 4 + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bk[j] = sK[(tx + 16 * j) * LD + d];
-        bv[j] = sV[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = live(qp, k0 + tx + 16 * j, Sq, Sk, causal, window)
-                            ? expf(s[i][j] * scale - row_lse[i])
-                            : 0.f;
-        const float ds = p * (dp[i][j] - row_d[i]) * scale;
-        sDS[(ty * 4 + i) * LP + tx + 16 * j] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4], kv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sDS[(ty * 4 + i) * LP + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = sK[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= Sq) continue;
-    T* row = dq + ((size_t)(b * Sq + qp) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c]);
-  }
-}
-
 // --- the bf16/f16 backward on the tensor cores --------------------------------
 //
 //   fa_bwd_dq_wgmma_kernel<T, D>   <- _fa_bwd_dq_kernel (+ _bwd_recompute,
 //                                     _bwd_mask, _bwd_live)
 //   fa_bwd_dkv_wgmma_kernel<T, D>  <- _fa_bwd_dkv_kernel
-// of byteps_tpu/ops/flash_attention.py, for bf16 and f16; f32 keeps the FMA
-// kernels above (TF32 would not hold f32 inputs to f32 accuracy).
+// of byteps_tpu/ops/flash_attention.py, for bf16 and f16 (f32 takes three
+// TF32 products a product: fa_bwd_dq_tf32_kernel, fa_bwd_dkv_tf32_kernel).
 //
 // What bounds them on the H100. At GPT-2 small's shapes (b 8, s 512, h 12,
 // d 64, causal) dQ reads q, k, v, dO, lse and D and writes dq, ~31 MB or
 // 9.4 us at 3.35 TB/s, against 6 d operations per live (query, key) pair
 // (S, dP, dS K), 4.8 GFLOP or 4.9 us at the bf16 tensor-core peak; dK/dV
 // moves ~38 MB (11.3 us) against 10 d a pair (S^T, dP^T, dS^T Q and two
-// products for P^T dO), 8.1 GFLOP (8.2 us). Both are bound by bytes. Their
-// FMA predecessors ran at 3 % of that bound, held by arithmetic on the
-// wrong unit; on an H100 at 700 W these run at 55 % (dQ) and 36 % (dK/dV)
-// of it, held by each tile's chain of copy wait, products, recompute and
-// barrier, which three or four blocks an SM overlap. The design:
+// products for P^T dO), 8.1 GFLOP (8.2 us). Both are bound by bytes. On an
+// H100 at 700 W they run at 55 % (dQ) and 36 % (dK/dV) of it, held by each
+// tile's chain of copy wait, products, recompute and barrier, which three
+// or four blocks an SM overlap. The design:
 // - every product is a wgmma with f32 accumulators in registers. dQ takes
 //   one warpgroup per 64 query rows and walks the K tiles: S = Q K^T and
 //   dP = dO V^T (both operands K-major over d), then dQ += dS K with K read
@@ -504,17 +351,17 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 //   dP^T), so its two [64 x 128] f32 accumulators fit in registers beside
 //   the S^T and dP^T fragments.
 
-// ds = p (dp - D) scale on this thread's fragment of a [64 query][64 key]
-// dQ tile (layout of fa_fwd_wgmma_kernel), p = 2^(s scale log2 e - lse2)
-// with lse2 = lse log2 e per row; with MASK, elements outside [lo[r], hi[r]]
-// get p = 0. On return s holds ds (f32).
-template <bool MASK>
-__device__ __forceinline__ void ds_rows(float (&s)[32], const float (&dp)[32],
+// ds = p (dp - D) scale on this thread's fragment of a [64 query][2 NS
+// key] dQ tile (layout of fa_fwd_wgmma_kernel), p = 2^(s scale log2 e -
+// lse2) with lse2 = lse log2 e per row; with MASK, elements outside
+// [lo[r], hi[r]] get p = 0. On return s holds ds (f32).
+template <bool MASK, int NS>
+__device__ __forceinline__ void ds_rows(float (&s)[NS], const float (&dp)[NS],
                                         const float (&lse2)[2], const float (&dd)[2],
                                         const int (&lo)[2], const int (&hi)[2], float scale_log2,
                                         float scale) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NS / 4; ++i)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -922,9 +769,9 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 //
 //   fa_fwd_tf32_kernel<D, true>   <- _fa_kernel (with lse)
 //   fa_fwd_tf32_kernel<D, false>  <- _kernel_nolse
+//   fa_bwd_dq_tf32_kernel<D>      <- _fa_bwd_dq_kernel
 //   fa_bwd_dkv_tf32_kernel<D>     <- _fa_bwd_dkv_kernel
-// of byteps_tpu/ops/flash_attention.py, for f32 (dQ in f32 stays on
-// fa_bwd_dq_kernel's FMAs).
+// of byteps_tpu/ops/flash_attention.py, for f32.
 //
 // What bounds them on the H100. f32 accuracy from the tensor cores takes
 // three TF32 products a product: each operand is split into hi = x rounded
@@ -934,16 +781,17 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // 2^-21 of itself, where one TF32 product errs by 2^-11. At 495 / 3 TFLOP/s
 // that is the least time: at GPT-2 small's shapes (b 8, s 512, h 12, d 64,
 // causal) 0.0196 ms for the forward's 3.2 GFLOP against 0.0150 ms for its
-// 50 MB of f32, and 0.0391 ms for dK/dV (0.0227 ms of bytes). The design
-// follows the bf16 kernels', with what TF32 changes:
+// 50 MB of f32, 0.0293 ms for dQ (0.0189 ms of bytes) and 0.0391 ms for
+// dK/dV (0.0227 ms of bytes). The design follows the bf16 kernels', with
+// what TF32 changes:
 // - wgmma reads TF32 operands from shared memory K-major only (the
-//   transpose immediates exist for 16-bit types alone). Q K^T (and K Q^T,
-//   V dO^T) reduce over d, along which the [b, s, h, d] rows are already
-//   K-major, so TMA's tiles serve as they land. P V, P^T dO and dS^T Q
-//   reduce over keys or queries, so V, dO and Q are also needed as [d][s]
-//   tiles: after each TMA tile lands the warpgroup's threads split it and
-//   write the transpose (split_transpose), in the 128- or 64-byte swizzle
-//   wgmma reads;
+//   transpose immediates exist for 16-bit types alone). Q K^T (and dO V^T,
+//   K Q^T, V dO^T) reduce over d, along which the [b, s, h, d] rows are
+//   already K-major, so TMA's tiles serve as they land. P V, dS K, P^T dO
+//   and dS^T Q reduce over keys or queries, so V, K, dO and Q are also
+//   needed as [d][s] tiles: after each TMA tile lands the warpgroup's
+//   threads split it and write the transpose (split_transpose), in the
+//   128- or 64-byte swizzle wgmma reads;
 // - that pass also writes the split: hi over the TMA tile in place and lo
 //   beside it; P and dS (the A operands of the second products) are split
 //   in registers. A thread's accumulator pair sits at columns 2t, 2t+1 of
@@ -954,11 +802,15 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 //   forward keeps Q (hi, lo), a two-stage ring of raw K and V tiles of 32
 //   keys, K's lo and V^T's hi and lo, 88 KB at d 64 (176 KB at d 128), so
 //   two blocks share an SM and one's split and softmax overlap the other's
-//   products; dK/dV keeps K and V (hi, lo), a two-stage ring of Q and dO
-//   tiles, their lo and their transposes' hi and lo, 226 KB at d 64 (64
-//   queries a tile; 16 at d 128, 209 KB): one block an SM, whose split,
-//   products and softmax run one after another, only the TMA ring
-//   overlapping them;
+//   products; dQ keeps Q's and dO's hi, their lo as register A fragments
+//   (split_frags), a two-stage ring of raw K and V tiles of 32 keys, their
+//   lo and K^T's hi and lo, 97 KB at d 64, two blocks an SM (64-key tiles,
+//   one block, took 11 % longer; 16-key tiles with lo in shared memory, two
+//   blocks, 34 %; at d 128: 16 keys, lo in shared memory, 193 KB); dK/dV
+//   keeps K and V (hi, lo), a two-stage ring of Q and dO tiles, their lo
+//   and their transposes' hi and lo, 226 KB at d 64 (64 queries a tile; 16
+//   at d 128, 209 KB): one block an SM, whose split, products and softmax
+//   run one after another, only the TMA ring overlapping them;
 // - the rest is the bf16 kernels': online softmax in base 2 on the
 //   accumulator fragment, per-row column bounds on the tiles that cross a
 //   mask edge, the heaviest tiles first, lse and D per query column in
@@ -1074,6 +926,30 @@ __device__ __forceinline__ void a_frags(const float (&x)[NS], uint32_t (&hi)[NS]
 #pragma unroll
     for (int a = 0; a < 4; ++a)
       hopper::split_tf32(x[4 * j + (a == 1 ? 2 : a == 2 ? 1 : a)], hi[4 * j + a], lo[4 * j + a]);
+}
+
+// This thread's A fragments of a [64][D] tile as TMA wrote it (F32Tile<64,
+// D>), split in place: hi over the raw values, the lo halves into `lo`, 4
+// registers per K step of 8 columns (register a of step j: row g + 8 (a &
+// 1), column 8j + t + 4 (a >> 1), g = 16 warp + lane / 4, t = lane % 4).
+// The warpgroup's fragments cover the tile once, so no value is written by
+// another thread than the one that read it.
+template <int D>
+__device__ __forceinline__ void split_frags(uint8_t* raw, uint32_t (&lo)[D / 2]) {
+  using G = F32Tile<64, D>;
+  const int g = 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2), t = threadIdx.x & 3;
+  float x[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i)
+    x[i] = *reinterpret_cast<const float*>(
+        raw + G::offset(g + 8 * (i & 1), 8 * (i / 4) + t + 4 * ((i >> 1) & 1)));
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    uint32_t hi;
+    hopper::split_tf32(x[i], hi, lo[i]);
+    *reinterpret_cast<uint32_t*>(
+        raw + G::offset(g + 8 * (i & 1), 8 * (i / 4) + t + 4 * ((i >> 1) & 1))) = hi;
+  }
 }
 
 // Keys per tile of the f32 forward: 32 keeps it at 88 KB of shared memory
@@ -1474,6 +1350,224 @@ fa_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// Keys per tile of the f32 dQ kernel, and whether it keeps Q's and dO's
+// lo halves as register A fragments (d <= 64; at d 128 they would take 128
+// registers) rather than in shared memory. 32 keys with lo in registers
+// hold it to 97 KB at d 64, two blocks an SM; at d 128, 16 keys and lo in
+// shared memory fit 193 KB (tools/fa_f32_ablate.py times the others).
+template <int D> __host__ __device__ constexpr int f32_dq_bk() { return D == 128 ? 16 : 32; }
+template <int D> __host__ __device__ constexpr bool f32_dq_reg_lo() { return D <= 64; }
+
+// dQ of one 64-row q tile in f32, walking its live K tiles (replaces
+// _fa_bwd_dq_kernel for f32; design in the note above).
+template <int D>
+__global__ void __launch_bounds__(WG)
+fa_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ dvec, float* __restrict__ dq, int H, int Sq,
+                      int Sk, float scale, int causal, int window) {
+  constexpr int BKQ = f32_dq_bk<D>();
+  constexpr bool REG_LO = f32_dq_reg_lo<D>();
+  using GQ = F32Tile<BQ, D>;   // Q, dO: raw, then hi in place
+  using GK = F32Tile<BKQ, D>;  // a K or V tile as TMA writes it
+  using GT = F32Tile<D, BKQ>;  // K^T, keys at perm8
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sQ = (base + 1023u) & ~1023u;
+  const uint32_t sDO = sQ + GQ::BYTES;
+  const uint32_t sQlo = sDO + GQ::BYTES;         // without REG_LO
+  const uint32_t sDOlo = sQlo + GQ::BYTES;
+  const uint32_t sK = sQlo + (REG_LO ? 0 : 2 * GQ::BYTES);  // stage st at sK + st * GK::BYTES
+  const uint32_t sV = sK + STAGES * GK::BYTES;   // stage st at sV + st * GK::BYTES
+  const uint32_t sKlo = sV + STAGES * GK::BYTES;
+  const uint32_t sVlo = sKlo + GK::BYTES;
+  const uint32_t sKth = sVlo + GK::BYTES;
+  const uint32_t sKtl = sKth + GT::BYTES;
+  const uint32_t bar_q = sKtl + GT::BYTES;       // Q and dO
+  const uint32_t bar_kv = bar_q + 8;             // stage st at bar_kv + 8 * st
+  auto at = [&](uint32_t a) { return smem_raw + (a - base); };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = BQ * (gridDim.y - 1 - blockIdx.y);  // most live K tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int nk = (Sk + BKQ - 1) / BKQ;
+  int kt_lo = 0, kt_hi = nk;
+  if (causal) {
+    kt_hi = min(nk, (min(q0 + BQ, Sq) - 1) / BKQ + 1);
+    if (window > 0) kt_lo = max(0, q0 - (window - 1)) / BKQ;
+  }
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) mbar_init(bar_kv + 8 * st, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Issued by thread 0: K and V tile kt into ring stage st.
+  auto load_kv = [&](int kt, int st) {
+    mbar_expect_tx(bar_kv + 8 * st, 2 * GK::BYTES);
+    for (int p = 0; p < D / GK::PC; ++p) {
+      tma_load_4d(sK + st * GK::BYTES + p * GK::PANEL, &tk, bar_kv + 8 * st, p * GK::PC, h,
+                  kt * BKQ, b);
+      tma_load_4d(sV + st * GK::BYTES + p * GK::PANEL, &tv, bar_kv + 8 * st, p * GK::PC, h,
+                  kt * BKQ, b);
+    }
+  };
+  if (tid == 0 && kt_lo < kt_hi) {
+    mbar_expect_tx(bar_q, 2 * GQ::BYTES);
+    for (int p = 0; p < D / GQ::PC; ++p) {
+      tma_load_4d(sQ + p * GQ::PANEL, &tq, bar_q, p * GQ::PC, h, q0, b);
+      tma_load_4d(sDO + p * GQ::PANEL, &tdo, bar_q, p * GQ::PC, h, q0, b);
+    }
+    load_kv(kt_lo, 0);
+  }
+
+  const int qr = q0 + warp * 16 + (lane >> 2);  // query position of this thread's row 0
+  const int c0 = 2 * (lane & 3);                // this thread's first column in 8
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr + 8 * r;
+    lse2[r] = (qp < Sq ? lse[(size_t)bh * Sq + qp] : kBig) * kLog2e;
+    dd[r] = qp < Sq ? dvec[(size_t)bh * Sq + qp] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t qlo[REG_LO ? D / 2 : 1], dolo[REG_LO ? D / 2 : 1];  // with REG_LO
+  int lo[2], hi[2];  // live columns of a masked tile
+
+  if (kt_lo < kt_hi) {
+    mbar_wait(bar_q, 0);
+    if constexpr (REG_LO) {  // fenced with the first K/V tile's split
+      split_frags<D>(at(sQ), qlo);
+      split_frags<D>(at(sDO), dolo);
+    } else {
+      split_tile<GQ::BYTES>(at(sQ), at(sQlo));
+      split_tile<GQ::BYTES>(at(sDO), at(sDOlo));
+    }
+  }
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int it = kt - kt_lo, st = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    // The other stage was last read in the previous tile, which every warp
+    // has finished (the barrier at the end of the loop).
+    if (tid == 0 && kt + 1 < kt_hi) load_kv(kt + 1, (it + 1) % STAGES);
+    const int k0 = kt * BKQ;
+    const uint32_t kst = sK + st * GK::BYTES, vst = sV + st * GK::BYTES;
+
+    mbar_wait(bar_kv + 8 * st, parity);
+    split_transpose<BKQ, D, true>(at(kst), at(sKlo), at(sKth), at(sKtl));
+    split_tile<GK::BYTES>(at(vst), at(sVlo));
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[BKQ / 2], dp[BKQ / 2];
+#pragma unroll
+    for (int i = 0; i < BKQ / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    if constexpr (REG_LO) {
+      fence_regs(qlo);
+      fence_regs(dolo);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {  // S = Q K^T: Q_lo K_hi, then Q_hi K_lo, then Q_hi K_hi
+      if constexpr (REG_LO) {
+        WgmmaTf32RS<BKQ>::run(s, qlo + 4 * j, GK::desc(kst + GK::kstep(j)));
+      } else {
+        WgmmaTf32SS<BKQ>::run(s, GQ::desc(sQlo + GQ::kstep(j)), GK::desc(kst + GK::kstep(j)), 1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BKQ>::run(s, GQ::desc(sQ + GQ::kstep(j)), GK::desc(sKlo + GK::kstep(j)), 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BKQ>::run(s, GQ::desc(sQ + GQ::kstep(j)), GK::desc(kst + GK::kstep(j)), 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {  // dP = dO V^T, the same three
+      if constexpr (REG_LO) {
+        WgmmaTf32RS<BKQ>::run(dp, dolo + 4 * j, GK::desc(vst + GK::kstep(j)));
+      } else {
+        WgmmaTf32SS<BKQ>::run(dp, GQ::desc(sDOlo + GQ::kstep(j)), GK::desc(vst + GK::kstep(j)),
+                              1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BKQ>::run(dp, GQ::desc(sDO + GQ::kstep(j)), GK::desc(sVlo + GK::kstep(j)), 1);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      WgmmaTf32SS<BKQ>::run(dp, GQ::desc(sDO + GQ::kstep(j)), GK::desc(vst + GK::kstep(j)), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    if constexpr (REG_LO) {
+      fence_regs(qlo);
+      fence_regs(dolo);
+    }
+
+    // Rows past Sq need no mask: their lse2 is huge, so p = 0.
+    const bool inner = k0 + BKQ <= Sk && (!causal || (k0 + BKQ - 1 <= q0 &&
+                                                     (window <= 0 || q0 + BQ - 1 - k0 < window)));
+    if (inner) {
+      ds_rows<false>(s, dp, lse2, dd, lo, hi, scale_log2, scale);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = qr + 8 * r;
+        hi[r] = (causal ? min(qp, Sk - 1) : Sk - 1) - k0 - c0;
+        lo[r] = (causal && window > 0 ? qp - window + 1 : 0) - k0 - c0;
+      }
+      ds_rows<true>(s, dp, lse2, dd, lo, hi, scale_log2, scale);
+    }
+
+    // dQ += dS K, 8 keys a step: dS_lo K_hi, dS_hi K_lo, dS_hi K_hi, with
+    // dS as the A fragments of the S accumulator and K^T from the split
+    uint32_t ah[BKQ / 2], al[BKQ / 2];
+    a_frags<BKQ / 2>(s, ah, al);
+    fence_regs(acc);
+    fence_regs(ah);
+    fence_regs(al);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BKQ / 8; ++j)
+      WgmmaTf32RS<D>::run(acc, al + 4 * j, GT::desc(sKth + GT::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BKQ / 8; ++j)
+      WgmmaTf32RS<D>::run(acc, ah + 4 * j, GT::desc(sKtl + GT::kstep(j)));
+#pragma unroll
+    for (int j = 0; j < BKQ / 8; ++j)
+      WgmmaTf32RS<D>::run(acc, ah + 4 * j, GT::desc(sKth + GT::kstep(j)));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(ah);
+    fence_regs(al);
+    __syncthreads();  // stage st and the split tiles are free
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qr + 8 * r;
+    if (qp >= Sq) continue;
+    float* row = dq + ((size_t)(b * Sq + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(row + 8 * i) =
+          make_float2(acc[i * 4 + r * 2], acc[i * 4 + r * 2 + 1]);
+  }
+}
+
 // Raises a kernel's dynamic shared-memory limit once per device: the first
 // launch of each instantiation on a device pays for it, later ones do not.
 struct Prepared {
@@ -1549,11 +1643,12 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // Tensor maps of q and dO (boxes of q_rows positions) and of k and v (boxes
-// of BK positions) for the tensor-core backward, in panels of the tiles'
-// width.
+// of k_rows positions) for the tensor-core backward, in panels of the
+// tiles' width.
 template <typename T, int D>
 cudaError_t encode_qkvdo(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
-                         const void* dout, int B, int H, int Sq, int Sk, int q_rows) {
+                         const void* dout, int B, int H, int Sq, int Sk, int q_rows,
+                         int k_rows) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int DP = F32 ? F32Tile<BK, D>::PC : Tile<D>::DP;
   const CUtensorMapDataType dt = F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -1562,8 +1657,8 @@ cudaError_t encode_qkvdo(CUtensorMap (&maps)[4], const void* q, const void* k, c
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   cudaError_t err;
   if ((err = hopper::encode_bshd(&maps[0], q, dt, B, Sq, H, D, DP, q_rows)) != cudaSuccess ||
-      (err = hopper::encode_bshd(&maps[1], k, dt, B, Sk, H, D, DP, BK)) != cudaSuccess ||
-      (err = hopper::encode_bshd(&maps[2], v, dt, B, Sk, H, D, DP, BK)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&maps[1], k, dt, B, Sk, H, D, DP, k_rows)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&maps[2], v, dt, B, Sk, H, D, DP, k_rows)) != cudaSuccess ||
       (err = hopper::encode_bshd(&maps[3], dout, dt, B, Sq, H, D, DP, q_rows)) != cudaSuccess)
     return err;
   return cudaSuccess;
@@ -1575,23 +1670,29 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
                    float scale, int causal, int window, cudaStream_t stream) {
   static Prepared prepared;
   cudaError_t err;
+  CUtensorMap m[4];
+  // x walks (batch, head) fastest, so each wave takes one q tile of every
+  // head before the next, lighter one (the kernels reverse y).
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   if constexpr (std::is_same<T, float>::value) {
-    constexpr int LD = D + 1;
-    const size_t smem = sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * (BK + 1));
-    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-    if ((err = prepared(fa_bwd_dq_kernel<T, D>, smem)) != cudaSuccess) return err;
-    fa_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-        (const float*)dvec, (T*)dq, H, Sq, Sk, scale, causal, window);
+    constexpr int BKQ = f32_dq_bk<D>();
+    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BQ, BKQ)) != cudaSuccess)
+      return err;
+    // Q and dO (and their lo without f32_dq_reg_lo), the K/V ring, K's and
+    // V's lo, K^T's hi and lo, 1024 bytes of alignment, the mbarriers
+    constexpr size_t smem = (f32_dq_reg_lo<D>() ? 2 : 4) * F32Tile<BQ, D>::BYTES +
+                            (2 * STAGES + 2) * F32Tile<BKQ, D>::BYTES +
+                            2 * F32Tile<D, BKQ>::BYTES + 1024 + 8 * (1 + STAGES);
+    if ((err = prepared(fa_bwd_dq_tf32_kernel<D>, smem)) != cudaSuccess) return err;
+    fa_bwd_dq_tf32_kernel<D><<<grid, WG, smem, stream>>>(
+        m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (float*)dq, H, Sq, Sk,
+        scale, causal, window);
   } else {
     using G = Tile<D>;
-    CUtensorMap m[4];
-    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BQ)) != cudaSuccess) return err;
+    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BQ, BK)) != cudaSuccess)
+      return err;
     // Q, dO + the K/V ring, 1024 bytes of alignment, the mbarriers
     constexpr size_t smem = (2 + 2 * STAGES) * G::BYTES + 1024 + 8 * (1 + 2 * STAGES);
-    // x walks (batch, head) fastest, so each wave takes one q tile of every
-    // head before the next, lighter one (the kernel reverses y).
-    const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
     if ((err = prepared(fa_bwd_dq_wgmma_kernel<T, D>, smem)) != cudaSuccess) return err;
     fa_bwd_dq_wgmma_kernel<T, D><<<grid, WG, smem, stream>>>(
         m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (T*)dq, H, Sq, Sk, scale,
@@ -1612,7 +1713,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   const dim3 grid(B * H, (Sk + BK - 1) / BK);
   if constexpr (std::is_same<T, float>::value) {
     constexpr int BN = f32_dkv_bn<D>();
-    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN)) != cudaSuccess) return err;
+    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN, BK)) != cudaSuccess)
+      return err;
     // K, V and their lo, the Q/dO ring, their lo, their transposes' hi and
     // lo, the ring's lse/D rows, 1024 bytes of alignment, the mbarriers
     constexpr size_t smem = 4 * F32Tile<BK, D>::BYTES + (2 * STAGES + 2) * F32Tile<BN, D>::BYTES +
@@ -1624,7 +1726,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
         Sq, Sk, scale, causal, window);
   } else {
     constexpr int BN = dkv_bn<D>();
-    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN)) != cudaSuccess) return err;
+    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN, BK)) != cudaSuccess)
+      return err;
     // K, V + the Q/dO ring + its lse/D rows, 1024 bytes of alignment, the
     // mbarriers
     constexpr size_t smem = 2 * Tile<D>::BYTES + 2 * STAGES * Tile<D, BN>::BYTES +

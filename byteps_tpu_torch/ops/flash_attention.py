@@ -19,8 +19,8 @@ wrapper       CUDA kernel                            replaces
               ``fa_fwd_tf32_kernel<D, false>``
 ``bwd_dq``    ``fa_bwd_dq_wgmma_kernel<T, D>``       ``_fa_bwd_dq_kernel``
               (bf16/f16, tensor cores),
-              ``fa_bwd_dq_kernel<float, D>`` (f32
-              FMAs)
+              ``fa_bwd_dq_tf32_kernel<D>`` (f32,
+              three TF32 products a product)
 ``bwd_dkv``   ``fa_bwd_dkv_wgmma_kernel<T, D>``,     ``_fa_bwd_dkv_kernel``
               ``fa_bwd_dkv_tf32_kernel<D>``
 ============  =====================================  ====================

@@ -8,9 +8,8 @@ Phases, each of which raises on failure:
 1. build: the flash-attention kernels (nvcc, sm_90a) and the C++ PS core
    (g++), both from this checkout's sources, in parallel, into
    build/byteps_tpu_torch/; the SASS of each instantiation of the
-   tensor-core kernels (bf16/f16 forward, dQ, dK/dV; f32 forward and
-   dK/dV, three TF32 products a product) must hold HGMMA (wgmma)
-   instructions;
+   tensor-core kernels (bf16/f16 and f32 forward, dQ, dK/dV; in f32 three
+   TF32 products a product) must hold HGMMA (wgmma) instructions;
 2. kernels: each of the four CUDA kernels against its plain PyTorch
    version on the card, at the attention shapes of the main paths (GPT-2
    small: b 8, s 512, h 12, d 64, bf16, causal, and the same in f32;
@@ -138,8 +137,8 @@ Phases, each of which raises on failure:
 13. (run right after phase 12) GPT-2 small trained in f32 (see
    ``f32_phase``): GPT2Small(dtype=float32, attn_impl="flash"), seed-0
    weights, phase 3's tokens, 3 collective AdamW steps through the f32
-   kernels (the forward and dK/dV on the tensor cores as three TF32
-   products, dQ on FMAs), held to the same weights under plain attention
+   kernels (the forward, dQ and dK/dV on the tensor cores as three TF32
+   products), held to the same weights under plain attention
    in f32 (step 1's loss and the evaluation logits, within a bound from
    limit()'s f32 terms), then a profiled step.
 
@@ -222,9 +221,9 @@ def build_all():
 def tensor_core_sass():
     """Registers, spills (the ptxas report) and HGMMA instructions (the
     SASS, by cuobjdump) of each instantiation of the tensor-core kernels:
-    bf16/f16 forward with and without lse, dQ and dK/dV, and the f32
-    (three TF32 products) forward with and without lse and dK/dV; raises
-    if one has no HGMMA, i.e. does not run on the tensor cores."""
+    the forward with and without lse, dQ and dK/dV in bf16/f16 and in f32
+    (three TF32 products); raises if one has no HGMMA, i.e. does not run
+    on the tensor cores."""
     import re
 
     from byteps_tpu_torch.ops import _cuda_lib
@@ -259,13 +258,12 @@ def tensor_core_sass():
                  "bfloat16" if "bfloat16" in m.group(3) else "float16")
         lse = f" lse={m.group(5)}" if m.group(5) else ""
         named[f"{m.group(1)}_{m.group(2)} {dtype} d{m.group(4)}{lse}"] = v
-    # bf16/f16: 2 dtypes x 4 head dims x (forward with and without lse,
-    # dQ, dK/dV); f32: 4 head dims x (forward with and without lse, dK/dV)
+    # 3 dtypes x 4 head dims x (forward with and without lse, dQ, dK/dV)
     f32 = sum(k.split()[1] == "float32" for k in named)
-    if (len(named) != 44 or f32 != 12
+    if (len(named) != 48 or f32 != 16
             or not all(v["hgmma"] > 0 for v in named.values())):
         raise AssertionError(f"tensor-core kernels: expected 32 bf16/f16 "
-                             f"and 12 f32 instantiations with HGMMA, got "
+                             f"and 16 f32 instantiations with HGMMA, got "
                              f"{named}")
     log("tensor-core kernels (ptxas, SASS):", json.dumps(named))
     return named
@@ -775,7 +773,7 @@ def _profile_step(run):
     flash = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
              for k in ("fa_fwd_wgmma_kernel", "fa_fwd_tf32_kernel",
                        "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel",
-                       "fa_bwd_dq_kernel", "fa_bwd_dkv_tf32_kernel")}
+                       "fa_bwd_dq_tf32_kernel", "fa_bwd_dkv_tf32_kernel")}
     return {"host_timed_step": host, "device_ms": device_ms,
             "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_union_ms": union_us / 1e3, "device_events": len(spans),
@@ -830,7 +828,7 @@ def _check_eval_launches(label, launches, layers):
 
 BF16_KERNELS = ("fa_fwd_wgmma_kernel", "fa_bwd_dq_wgmma_kernel",
                 "fa_bwd_dkv_wgmma_kernel")
-F32_KERNELS = ("fa_fwd_tf32_kernel", "fa_bwd_dq_kernel",
+F32_KERNELS = ("fa_fwd_tf32_kernel", "fa_bwd_dq_tf32_kernel",
                "fa_bwd_dkv_tf32_kernel")
 
 
@@ -869,12 +867,37 @@ def collective_phase():
     return losses, times, launches, profile
 
 
+_PORTS_GIVEN = set()
+
+
 def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A TCP port that nothing is bound to, outside the kernel's ephemeral
+    range and never the same twice in a run. A port from bind(0) lies in
+    that range, where any socket bound to port 0 (the core's van, gloo's
+    pairs) or any outgoing connection may take it before the process it
+    is handed to binds it; outside the range only an explicit bind can.
+    The range differs between machines (32768-60999 by default, 16000-
+    65535 on some), so it is read, and used only if it leaves nothing."""
+    import random
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low, high = (int(x) for x in f.read().split())
+    # from 10000: clear of the monitor's 9100 + node id and of well-known
+    # ports
+    span = ([p for p in range(10000, 65536) if not low <= p <= high]
+            or range(10000, 65536))
+    pick = random.SystemRandom()
+    for _ in range(256):
+        port = pick.choice(span)
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    raise RuntimeError(f"no free port in {span}")
 
 
 def _check_launches(label, launches, layers=12, steps=STEPS, remat=False):
@@ -3945,7 +3968,7 @@ REPLACES = {
                 "byteps_tpu/ops/flash_attention.py:253"),
     "fwd": ("fa_fwd_wgmma_kernel<T,D,false>", "fa_fwd_tf32_kernel<D,false>",
             "byteps_tpu/ops/flash_attention.py:277"),
-    "bwd_dq": ("fa_bwd_dq_wgmma_kernel<T,D>", "fa_bwd_dq_kernel<float,D>",
+    "bwd_dq": ("fa_bwd_dq_wgmma_kernel<T,D>", "fa_bwd_dq_tf32_kernel<D>",
                "byteps_tpu/ops/flash_attention.py:463"),
     "bwd_dkv": ("fa_bwd_dkv_wgmma_kernel<T,D>", "fa_bwd_dkv_tf32_kernel<D>",
                 "byteps_tpu/ops/flash_attention.py:487"),

@@ -2,21 +2,25 @@
 against the JAX one, and (on a card) the kernels against their plain
 versions.
 
-On the card the f32 forward (``fa_fwd_tf32_kernel``) and dK/dV
-(``fa_bwd_dkv_tf32_kernel``) take every product on the tensor cores as
-three TF32 products: each operand x splits into hi = x rounded to TF32
-(``cvt.rna``: to nearest, ties away from zero, on the 13 low mantissa
-bits) and lo = x - hi rounded the same way, and a sum of products a.b is
-taken as all of a_lo.b_hi, then a_hi.b_lo, then a_hi.b_hi, into one f32
-accumulator (``csrc/flash_attention.cu``). The CPU has no TF32, so the
-first tests emulate that arithmetic in numpy, bit for bit in the split and
-in f32 for the sums, at the kernels' tile depths (K = 16 to 128: the head
-dims for Q.K^T, 64, 32 and 16 keys or queries for P.V, P^T.dO and
+On the card the f32 forward (``fa_fwd_tf32_kernel``), dQ
+(``fa_bwd_dq_tf32_kernel``) and dK/dV (``fa_bwd_dkv_tf32_kernel``) take
+every product on the tensor cores as three TF32 products: each operand x
+splits into hi = x rounded to TF32 (``cvt.rna``: to nearest, ties away
+from zero, on the 13 low mantissa bits) and lo = x - hi rounded the same
+way, and a sum of products a.b is taken as all of a_lo.b_hi, then
+a_hi.b_lo, then a_hi.b_hi, into one f32 accumulator
+(``csrc/flash_attention.cu``). The CPU has no TF32, so the first tests
+emulate that arithmetic in numpy, bit for bit in the split and in f32 for
+the sums, at the kernels' tile depths (K = 16 to 128: the head dims for
+Q.K^T and dO.V^T, 64, 32 and 16 keys or queries for P.V, dS.K, P^T.dO and
 dS^T.Q), and hold it to float64 under ``limit()``'s f32 terms (the bound
 every kernel check on the card uses): its worst error must sit under a
 twentieth of them, and one TF32 product alone must exceed them, so the
 limit can tell the two apart.
 
+``test_f32_plain_backward_matches_jax`` holds the port's plain f32 dQ
+(and dK/dV) to the JAX package's backward (its dQ and dK/dV Pallas
+kernels in interpret mode) from the same residuals, and
 ``test_f32_flash_lm_matches_jax`` holds the port's f32 ``TransformerLM``
 with flash attention (on the CPU: the kernels' plain versions) to the JAX
 package's with its Pallas flash kernel in interpret mode, at the
@@ -114,15 +118,22 @@ def test_rna_rounds_to_nearest_ties_away():
 
 
 @pytest.mark.parametrize("k", DEPTHS)
-@pytest.mark.parametrize("kind", ["normal", "probabilities"])
+@pytest.mark.parametrize("kind", ["normal", "probabilities", "ds"])
 def test_three_tf32_products_sit_well_inside_the_f32_limit(k, kind):
-    """Random operands as the kernels meet them: normal q, k, v, dO, and
-    probabilities in [0, 1] against normal values (P.V, P^T.dO)."""
+    """Random operands as the kernels meet them: normal q, k, v, dO,
+    probabilities in [0, 1] against normal values (P.V, P^T.dO), and
+    mixed-sign ds = p (dp - D) scale against normal values (dS.K,
+    dS^T.Q)."""
     rng = np.random.default_rng(k)
     n = 4096
     a = rng.standard_normal((n, k)).astype(np.float32)
     if kind == "probabilities":
         a = rng.random((n, k)).astype(np.float32)
+    elif kind == "ds":
+        p = rng.random((n, k))
+        dp = rng.standard_normal((n, k)) * 8
+        dd = rng.standard_normal((n, 1)) * 8
+        a = (p * (dp - dd) * 0.125).astype(np.float32)
     b = rng.standard_normal((n, k)).astype(np.float32)
     ratio = ratio_to_limit(three_tf32_dots(a, b), a, b)
     print(f"K {k} {kind}: three TF32 products at {ratio:.2e} of the "
@@ -149,6 +160,55 @@ def test_one_tf32_product_fails_the_f32_limit(k):
           f"{three:.2e}")
     assert one > 1.0
     assert three <= MARGIN
+
+
+# b, s_q, s_k, h, d, causal, window: lengths that cross the f32 dQ
+# kernel's 16-, 32- and 64-key tiles, d 16 and 128, causal, a window and
+# s_q != s_k
+JAX_BWD_CASES = {
+    "d16_causal": (1, 100, 100, 2, 16, True, None),
+    "d16_window": (1, 150, 150, 2, 16, True, 40),
+    "d128_rect_causal": (1, 70, 150, 2, 128, True, None),
+    "d128_full_rect": (1, 48, 90, 2, 128, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JAX_BWD_CASES))
+def test_f32_plain_backward_matches_jax(case):
+    """q, k, v, o and lse of the port's plain f32 forward go through JAX's
+    backward rule (``_flash_bwd``: the ``_fa_bwd_dq_kernel`` and
+    ``_fa_bwd_dkv_kernel`` Pallas kernels in interpret mode) and through
+    the port's ``_bwd_dq_reference`` / ``_bwd_dkv_reference``, D formed
+    once by ``_flash_bwd``'s expression; both sum f32 in another order
+    (XLA's dot against PyTorch's einsum): rtol 1e-4, atol 1e-5."""
+    jax = pytest.importorskip("jax")
+    # The JAX side runs on the CPU, as tests/conftest.py pins it, also where
+    # JAX sees a card (its f32 dots there default to TF32, and it would
+    # take most of the card's memory); a no-op once JAX is set up.
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from byteps_tpu.ops.flash_attention import _flash_bwd
+    b, s_q, s_k, h, d, causal, window = JAX_BWD_CASES[case]
+    rng = np.random.default_rng(d + s_q)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d)).astype(np.float32)) for s in (s_q, s_k, s_k, s_q))
+    scale = d ** -0.5
+    o, lse = fa._fwd_reference(q, k, v, causal, scale, window)
+    lse_rows = jnp.broadcast_to(
+        jnp.asarray(lse.numpy()).reshape(b * h, s_q, 1), (b * h, s_q, 8))
+    res = (*(jnp.asarray(t.numpy()) for t in (q, k, v, o)), lse_rows)
+    want = _flash_bwd(causal, scale, None, None, True, window, res,
+                      jnp.asarray(do.numpy()))
+    dvec = jnp.sum(jnp.asarray(do.numpy()) * jnp.asarray(o.numpy()),
+                   axis=-1)
+    dvec = torch.from_numpy(np.array(dvec)).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, dvec, causal, scale, window)
+    got = (fa._bwd_dq_reference(*args), *fa._bwd_dkv_reference(*args))
+    for what, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5, err_msg=what)
 
 
 @pytest.mark.parametrize("head_dim", [32, 64])
@@ -226,7 +286,7 @@ def _check(what, got, want, mag, failures, mag_dp=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CUDA_CASES))
 def test_f32_tensor_core_kernels_match_plain(case):
-    """The f32 forward with and without lse and dK/dV (three TF32
+    """The f32 forward with and without lse, dQ and dK/dV (three TF32
     products on wgmma) against their plain versions under limit(), at
     every head dim, rectangular and unaligned lengths, a window, a single
     query row, a thousand (batch, head) pairs and GPT-2 small's shape."""
@@ -247,14 +307,17 @@ def test_f32_tensor_core_kernels_match_plain(case):
     o_ref, lse_ref = fa._fwd_reference(q, k, v, causal, scale, window)
     dvec = (do * o_ref).sum(-1).permute(0, 2, 1).contiguous()
     args = (q, k, v, do, lse_ref, dvec, causal, scale, window)
+    dq = fa.flash_bwd_dq(*args)
     dk, dv = fa.flash_bwd_dkv(*args)
+    dq_ref = fa._bwd_dq_reference(*args)
     dk_ref, dv_ref = fa._bwd_dkv_reference(*args)
     mag = fa._term_magnitudes(*args)
-    assert fa.LAUNCHES == {"fwd_lse": 1, "fwd": 1, "bwd_dq": 0,
+    assert fa.LAUNCHES == {"fwd_lse": 1, "fwd": 1, "bwd_dq": 1,
                            "bwd_dkv": 1}
     _check("o", o, o_ref, mag["o"], failures)
     _check("lse", lse, lse_ref, None, failures)
     _check("o", o_nl, o_ref, mag["o"], failures)
+    _check("dq", dq, dq_ref, mag["dq"], failures, mag["dq_dp"])
     _check("dk", dk, dk_ref, mag["dk"], failures, mag["dk_dp"])
     _check("dv", dv, dv_ref, mag["dv"], failures)
     assert not failures, failures

@@ -64,9 +64,12 @@ VARIANTS = {
 def edit(src, kernel, old, new):
     """src with every ``old`` inside the definition of ``kernel`` (from its
     name at the start of a line to the first closing brace at the start of
-    a line) replaced by ``new``; raises if there is none."""
-    start = src.index(f"\n{kernel}(")
-    end = src.index("\n}\n", start)
+    a line), or anywhere in src when ``kernel`` is None, replaced by
+    ``new``; raises if there is none."""
+    start, end = 0, len(src)
+    if kernel is not None:
+        start = src.index(f"\n{kernel}(")
+        end = src.index("\n}\n", start)
     body = src[start:end]
     if old not in body:
         raise RuntimeError(f"{old!r} not in {kernel}")
