@@ -22,12 +22,13 @@ import datetime
 import json
 import math
 import os
-import socket
 import tempfile
 from typing import Dict
 
 import torch
 import torch.distributed as dist
+
+from byteps_tpu_torch.utils.ports import free_port
 
 # seconds a spawned world may take, as the JAX dry run's subprocess
 DRYRUN_TIMEOUT_S = 1800.0
@@ -182,12 +183,6 @@ def _spawned(rank: int, n: int, port: int, device, out_dir: str) -> None:
         json.dump(res, f)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def dryrun_multichip(n_devices: int, device=None) -> Dict[str, float]:
     """Run the dry run over ``n_devices`` processes and return this
     process's readings (rank 0's when it spawns the world). In a world of
@@ -203,7 +198,7 @@ def dryrun_multichip(n_devices: int, device=None) -> Dict[str, float]:
 
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
-        ctx = mp.spawn(_spawned, args=(n_devices, _free_port(), device, tmp),
+        ctx = mp.spawn(_spawned, args=(n_devices, free_port(), device, tmp),
                        nprocs=n_devices, join=False)
         deadline = time.monotonic() + DRYRUN_TIMEOUT_S
         try:

@@ -70,15 +70,22 @@ def _live_mask(s_q: int, s_k: int, causal: bool, window: Optional[int],
     return mask
 
 
+def _acc(t):
+    """``t`` in the plain versions' accumulation type: f32, or float64 for
+    float64 inputs (the truth the kernels are held to on the card)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _scores(q, k, scale):
-    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k)) * scale
 
 
 def _fwd_reference(q, k, v, causal: bool, scale: float,
                    window: Optional[int] = None):
-    """Masked softmax attention in f32: returns (o in q's dtype, lse f32
-    [b, h, s_q]). A row with no live key gives o = 0 and lse = +1e30, as
-    the kernel's l == 0 guard does; p is cast to v's dtype before p.v."""
+    """Masked softmax attention in f32 (float64 for float64 inputs):
+    returns (o in q's dtype, lse [b, h, s_q]). A row with no live key
+    gives o = 0 and lse = +1e30, as the kernel's l == 0 guard does; p is
+    cast to v's dtype before p.v."""
     s = _scores(q, k, scale)
     mask = _live_mask(q.shape[1], k.shape[1], causal, window, q.device)
     if mask is not None:
@@ -89,7 +96,7 @@ def _fwd_reference(q, k, v, causal: bool, scale: float,
         p = p * mask
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0, torch.ones_like(l), l)
-    pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    pv = torch.einsum("bhqk,bkhd->bhqd", _acc(p.to(v.dtype)), _acc(v))
     o = (pv / safe_l).permute(0, 2, 1, 3).to(q.dtype)
     lse = torch.where(l == 0, torch.full_like(l, _BIG), m + torch.log(safe_l))
     return o, lse[..., 0]
@@ -103,7 +110,7 @@ def _recompute(q, k, v, do, lse, dvec, causal, scale, window):
     mask = _live_mask(q.shape[1], k.shape[1], causal, window, q.device)
     if mask is not None:
         p = p * mask
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", _acc(do), _acc(v))
     ds = p * (dp - dvec[..., None]) * scale
     return p, ds
 
@@ -112,7 +119,7 @@ def _bwd_dq_reference(q, k, v, do, lse, dvec, causal: bool, scale: float,
                       window: Optional[int] = None):
     """dQ = scale * sum_k [p (dO V^T - D)] K, ds cast to k's dtype."""
     _, ds = _recompute(q, k, v, do, lse, dvec, causal, scale, window)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    dq = torch.einsum("bhqk,bkhd->bqhd", _acc(ds.to(k.dtype)), _acc(k))
     return dq.to(q.dtype)
 
 
@@ -121,8 +128,8 @@ def _bwd_dkv_reference(q, k, v, do, lse, dvec, causal: bool, scale: float,
     """dV = sum_q p^T dO (f32 p), dK = scale * sum_q ds^T Q (ds cast to
     q's dtype)."""
     p, ds = _recompute(q, k, v, do, lse, dvec, causal, scale, window)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, _acc(do))
+    dk = torch.einsum("bhqk,bqhd->bkhd", _acc(ds.to(q.dtype)), _acc(q))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 

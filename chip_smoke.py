@@ -156,7 +156,6 @@ import importlib
 import json
 import math
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -608,6 +607,100 @@ def kernel_phase(cases=None):
     return errors, report
 
 
+# The f32 cases of tests/test_flash_attention.py and its bf16 one, at its
+# own bounds. name: (its _qkv draws in order from default_rng(0), each a
+# (b, s, h, d) of three arrays: q is the first draw's first, k and v the
+# last draw's second and third; dtype, causal, window, (rtol, atol) of o
+# or None, (rtol, atol) of the gradients of (o ** 2).sum() or None).
+_FWD_TOL, _GRAD_TOL = (2e-5, 2e-6), (5e-4, 5e-4)
+_QKV, _SMALL, _LONG = (2, 64, 3, 32), (1, 32, 2, 16), (1, 600, 2, 32)
+_CROSS = ((1, 100, 2, 16), (1, 260, 2, 16))
+REFERENCE_CASES = {
+    "matches_full": ((_QKV,), "float32", False, None, _FWD_TOL, None),
+    "matches_full_causal": ((_QKV,), "float32", True, None, _FWD_TOL, None),
+    "unaligned_seq": (((2, 50, 3, 32),), "float32", True, None, _FWD_TOL,
+                      None),
+    "bf16": ((_QKV,), "bfloat16", True, None, (0.05, 0.05), None),
+    "gradients": ((_SMALL,), "float32", True, None, None, (2e-4, 2e-5)),
+    "multiblock": ((_LONG,), "float32", False, None, None, _GRAD_TOL),
+    "multiblock_causal": ((_LONG,), "float32", True, None, None, _GRAD_TOL),
+    "cross_shapes": (_CROSS, "float32", False, None, None, _GRAD_TOL),
+    "causal_rectangular": (_CROSS, "float32", True, None, None, _GRAD_TOL),
+    "sliding_window": (((1, 300, 2, 16),), "float32", True, 64, (2e-4, 2e-5),
+                       _GRAD_TOL),
+}
+
+
+def reference_inputs(case):
+    """(q, k, v) of a reference case as float64 numpy arrays, before the
+    reference rounds them to its dtype."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    drawn = [[rng.standard_normal(shape) for _ in range(3)]
+             for shape in REFERENCE_CASES[case][0]]
+    return drawn[0][0], drawn[-1][1], drawn[-1][2]
+
+
+def reference_phase():
+    """Each kernel end to end at the JAX package's own tolerances, on
+    REFERENCE_CASES: the forward without lse (no gradient), and the
+    autograd Function, whose forward with lse hands its own lse and D to
+    dQ and dK/dV for the gradient of (o ** 2).sum(). The truth is the
+    plain versions in float64 on the same rounded inputs (the JAX test's
+    truth is full attention in f32, which sits within its bounds of
+    this). A case passes where every |err| / (atol + rtol |want|) is at
+    most 1. Returns {kernel: {dtype: worst ratio}} and the ratios by
+    case."""
+    import torch
+
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+    worst, cases, failures = {}, {}, []
+    for case, (_, dtype, causal, window, fwd_tol,
+               grad_tol) in REFERENCE_CASES.items():
+        q, k, v = (torch.from_numpy(x).to("cuda", getattr(torch, dtype))
+                   for x in reference_inputs(case))
+        q64, k64, v64 = (t.double() for t in (q, k, v))
+        scale = q.shape[-1] ** -0.5
+        o64, lse64 = fa._fwd_reference(q64, k64, v64, causal, scale, window)
+        checks = {}
+        if fwd_tol is not None:
+            with torch.no_grad():
+                o = fa.flash_attention(q, k, v, causal, window=window)
+            checks["fwd"] = [("o", o, o64, fwd_tol)]
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention(*leaves, causal=causal, window=window)
+        if fwd_tol is not None:
+            checks["fwd_lse"] = [("o", o.detach(), o64, fwd_tol)]
+        if grad_tol is not None:
+            (o ** 2).sum().backward()
+            do64 = 2 * o64
+            dvec = (do64 * o64).sum(-1).permute(0, 2, 1).contiguous()
+            args = (q64, k64, v64, do64, lse64, dvec, causal, scale, window)
+            dk64, dv64 = fa._bwd_dkv_reference(*args)
+            checks["bwd_dq"] = [("dq", leaves[0].grad,
+                                 fa._bwd_dq_reference(*args), grad_tol)]
+            checks["bwd_dkv"] = [("dk", leaves[1].grad, dk64, grad_tol),
+                                 ("dv", leaves[2].grad, dv64, grad_tol)]
+        ratios = cases[case] = {}
+        for kname, items in checks.items():
+            for what, got, want, (rtol, atol) in items:
+                got = got.double()
+                ratio = ((got - want).abs() / (atol + rtol * want.abs())
+                         ).max().item()
+                if not (bool(torch.isfinite(got).all()) and ratio <= 1.0):
+                    failures.append(f"{case}/{kname}/{what}: error / (atol "
+                                    f"+ rtol |want|) {ratio:.3f} > 1")
+                ratios[f"{kname}.{what}"] = ratio
+                by_dtype = worst.setdefault(kname, {})
+                by_dtype[dtype] = max(by_dtype.get(dtype, 0.0), ratio)
+    log("kernels at the reference's tolerances (worst |err| / (atol + rtol "
+        "|want|) a case):", json.dumps(cases))
+    if failures:
+        raise AssertionError("reference tolerances failed:\n"
+                             + "\n".join(failures))
+    return worst, cases
+
+
 # --- phases 3 and 4: the main path -------------------------------------------
 
 def _median(xs):
@@ -684,21 +777,129 @@ def _train(label, lm=GPT2, steps=STEPS, **make_kw):
     return model, step, batch, losses, times, staging, launches, peak_gb
 
 
-def _profile_step(run):
-    """Three more training steps, ``run()``. The first is timed on the
+# Host seconds between the marker events of ``_card_backlog``.
+MARK_PERIOD_S = 5e-4
+# Launches the card's queue holds before the next one blocks the host
+# (H100, torch 2.11.0+cu128: 1021 of a small kernel, 1018 of the flash
+# forward; tools/step_sync.py).
+LAUNCH_QUEUE = 1021
+
+
+def _sync_debug_step(run):
+    """One ``run()`` under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises at any synchronizing call PyTorch knows of. The caching
+    allocator's counters are read before and after: a retry frees the
+    cache with cudaFree, which waits for the card, and a new segment is a
+    cudaMalloc; the debug mode sees neither. Returns their changes."""
+    import torch
+    keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    before = torch.cuda.memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    return {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+
+def _card_backlog(run):
+    """``run()`` enqueued behind a ~0.5 s sleep of the card (so that the
+    host is ahead from the start): the card's ms for the step (CUDA events
+    around it), the host's ms to enqueue it, the sleep's ms, and whether
+    the card ever waited for the host in between.
+
+    The card waits only where it has done all the work enqueued so far.
+    A sampler thread records a marker event on the step's stream every
+    MARK_PERIOD_S; between two markers a, b the card did not wait if the
+    host had enqueued b (and so all the work before it) by the time the
+    card reached a. ``backlog_ms`` is the least of (card reaches a) -
+    (host has enqueued b) over consecutive markers, the sleep's end first
+    and the step's end last: above 0, the card never waited and its time
+    is exact (``device_ms_exact``). The card's times are put on the host's
+    clock by an event recorded on the idle card right after a synchronize;
+    its launch latency makes them early by microseconds, so the check errs
+    towards "waited".
+
+    The host may wait inside the enqueue without the card waiting: the
+    launch queue holds LAUNCH_QUEUE launches, and a step of more blocks
+    the host until the sleep ends (``host_waited``)."""
+    import torch
+    stream = torch.cuda.current_stream()
+    marks, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            marks.append((time.perf_counter(), ev))
+            stop.wait(MARK_PERIOD_S)
+
+    before, start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+    torch.cuda.synchronize()
+    h_before = time.perf_counter()
+    before.record()
+    torch.cuda._sleep(1_000_000_000)  # ~0.5 s at the H100's clocks
+    start.record()
+    marks.append((time.perf_counter(), start))
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        run()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        stop.set()
+        sampler.join()
+    end.record()
+    marks.append((time.perf_counter(), end))
+    torch.cuda.synchronize()
+    reached = [h_before + before.elapsed_time(ev) / 1e3 for _, ev in marks]
+    backlog_ms = min(reached[i] - marks[i + 1][0]
+                     for i in range(len(marks) - 1)) * 1e3
+    sleep_ms = before.elapsed_time(start)
+    return {"device_ms": start.elapsed_time(end),
+            "enqueue_behind_sleep_ms": enqueue_ms, "sleep_ms": sleep_ms,
+            "host_waited": enqueue_ms > sleep_ms, "markers": len(marks),
+            "backlog_ms": backlog_ms, "device_ms_exact": backlog_ms > 0}
+
+
+def _launch_counts(prof):
+    """Launches a profiled step made, by the CUDA API calls the profiler
+    saw on the host (each takes a slot of the launch queue), and the
+    kernels it saw on the card."""
+    import torch
+    counts = {"kernel_launches": 0, "memset_memcpy": 0, "device_kernels": 0}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if "#" not in ev.name and "Mem" not in ev.name:
+                counts["device_kernels"] += 1
+        elif ev.name.startswith(("cudaLaunch", "cuLaunch")):
+            counts["kernel_launches"] += 1
+        elif ev.name.startswith(("cudaMemsetAsync", "cudaMemcpyAsync")):
+            counts["memset_memcpy"] += 1
+    return counts
+
+
+def _profile_step(run, require_exact=False):
+    """Four more training steps, ``run()``. The first is timed on the
     host: the time ``run()`` takes to return (the host enqueueing the
     step) against the time to the synchronize after it; the two are close
-    when the host sets the step. The second measures the card's own time
-    for the step: the card sleeps (``torch.cuda._sleep``) while the host
-    enqueues the whole step behind it, so CUDA events around the step time
-    its kernels back to back, with no wait for the host (unless the step
-    itself waits for the card: ``device_ms_exact``); 1 - that time / the
-    unprofiled step is the idle share. The third runs under
-    torch.profiler (CUDA activity): device time by kernel family, the
-    union of the kernels' intervals and their span. The profiler can lose
+    when the host sets the step. The second runs under the sync debug
+    mode (``_sync_debug_step``). The third measures the card's own time
+    for the step behind a sleep (``_card_backlog``); 1 - that time / the
+    unprofiled step is the idle share, exact where the card never waited
+    for the host. The fourth runs under torch.profiler (CUDA activity):
+    device time by kernel family, the union of the kernels' intervals and
+    their span, the launches (``_launch_counts``). The profiler can lose
     kernels (ResNet-50's profile kept a fifth of the card's time), so
     ``profiled_share`` (union / the card's time) says how much of the step
-    the families cover. The caller adds the idle share."""
+    the families cover. A synchronizing call in the step fails it (the
+    debug step raises); with ``require_exact`` an allocator retry or a
+    card that waited for the host fails it too. The caller adds the idle
+    share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -709,24 +910,14 @@ def _profile_step(run):
     torch.cuda.synchronize()
     host = {"enqueue_ms": (t1 - t0) * 1e3,
             "step_ms": (time.perf_counter() - t0) * 1e3}
-    before, start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(3))
-    before.record()
-    torch.cuda._sleep(1_000_000_000)  # ~0.5 s at the H100's clocks
-    start.record()
-    t0 = time.perf_counter()
-    run()
-    host["enqueue_behind_sleep_ms"] = (time.perf_counter() - t0) * 1e3
-    end.record()
-    torch.cuda.synchronize()
-    device_ms = start.elapsed_time(end)
-    # Exact when the host enqueued the whole step while the card slept. A
-    # step that waits for the card inside (a host-device sync) leaves the
-    # card idle while the host enqueues the rest; device_ms then counts
-    # that idle time too, and the idle share is a lower bound.
-    host["sleep_ms"] = before.elapsed_time(start)
-    host["device_ms_exact"] = (host["enqueue_behind_sleep_ms"]
-                               < host["sleep_ms"])
+    allocator = _sync_debug_step(run)
+    backlog = _card_backlog(run)
+    device_ms = backlog.pop("device_ms")
+    host.update(backlog)
+    if require_exact and (allocator["num_alloc_retries"]
+                          or not host["device_ms_exact"]):
+        raise AssertionError(f"the card waited for the host in the step: "
+                             f"{host}, allocator {allocator}")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -774,7 +965,15 @@ def _profile_step(run):
              for k in ("fa_fwd_wgmma_kernel", "fa_fwd_tf32_kernel",
                        "fa_bwd_dq_wgmma_kernel", "fa_bwd_dkv_wgmma_kernel",
                        "fa_bwd_dq_tf32_kernel", "fa_bwd_dkv_tf32_kernel")}
+    launches = _launch_counts(prof)
+    # the step made no synchronizing call (the debug step above raises),
+    # so a host that waited behind the sleep waited for a queue slot
+    queued = launches["kernel_launches"] + launches["memset_memcpy"]
+    host["host_wait"] = ("none" if not host["host_waited"] else
+                         "launch queue full" if queued > LAUNCH_QUEUE else
+                         "not explained")
     return {"host_timed_step": host, "device_ms": device_ms,
+            "sync_debug_allocator": allocator, "launches": launches,
             "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_union_ms": union_us / 1e3, "device_events": len(spans),
             "device_span_ms": (spans[-1][1] - spans[0][0]) / 1e3
@@ -832,12 +1031,13 @@ F32_KERNELS = ("fa_fwd_tf32_kernel", "fa_bwd_dq_tf32_kernel",
                "fa_bwd_dkv_tf32_kernel")
 
 
-def _profile_lm(label, step, model, batch, times, kernels=BF16_KERNELS):
+def _profile_lm(label, step, model, batch, times, kernels=BF16_KERNELS,
+                require_exact=False):
     """``_profile_step`` of a collective LM step (the breakdown PERF.md
     reports: a profiler that fails, or sees no device time, fails the
     run); the forward, dQ and dK/dV must have run as ``kernels`` (with
     bf16 activations on the tensor cores)."""
-    profile = _profile_step(lambda: step(model, batch))
+    profile = _profile_step(lambda: step(model, batch), require_exact)
     for name in kernels:
         if not profile["flash_kernel_ms"][name] > 0:
             raise AssertionError(f"{label}: profile shows no {name}: "
@@ -859,7 +1059,8 @@ def collective_phase():
             "collective")
         launches["fwd"] = _evaluate(GPT2, model, tokens,
                                     tokens[:2, :128])[0]["fwd"]
-        profile = _profile_lm("collective", step, model, tokens, times)
+        profile = _profile_lm("collective", step, model, tokens, times,
+                              require_exact=True)
         del model
     finally:
         bps.shutdown()
@@ -867,37 +1068,11 @@ def collective_phase():
     return losses, times, launches, profile
 
 
-_PORTS_GIVEN = set()
-
-
 def _free_port():
-    """A TCP port that nothing is bound to, outside the kernel's ephemeral
-    range and never the same twice in a run. A port from bind(0) lies in
-    that range, where any socket bound to port 0 (the core's van, gloo's
-    pairs) or any outgoing connection may take it before the process it
-    is handed to binds it; outside the range only an explicit bind can.
-    The range differs between machines (32768-60999 by default, 16000-
-    65535 on some), so it is read, and used only if it leaves nothing."""
-    import random
-    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-        low, high = (int(x) for x in f.read().split())
-    # from 10000: clear of the monitor's 9100 + node id and of well-known
-    # ports
-    span = ([p for p in range(10000, 65536) if not low <= p <= high]
-            or range(10000, 65536))
-    pick = random.SystemRandom()
-    for _ in range(256):
-        port = pick.choice(span)
-        if port in _PORTS_GIVEN:
-            continue
-        with socket.socket() as s:
-            try:
-                s.bind(("", port))
-            except OSError:
-                continue
-        _PORTS_GIVEN.add(port)
-        return port
-    raise RuntimeError(f"no free port in {span}")
+    """A TCP port for a rendezvous: ``utils.ports.free_port`` (outside the
+    kernel's ephemeral range, never the same twice in a run)."""
+    from byteps_tpu_torch.utils.ports import free_port
+    return free_port()
 
 
 def _check_launches(label, launches, layers=12, steps=STEPS, remat=False):
@@ -1376,7 +1551,7 @@ def resnet_phase():
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         model, run = paths["collective"]
         n_params = len(list(model.parameters()))
-        profile = _profile_step(lambda: run(batch))
+        profile = _profile_step(lambda: run(batch), require_exact=True)
         profile["idle_share"] = 1.0 - profile["device_ms"] / _median(
             rec["collective"]["step_ms"])
         log("resnet50 collective step profile:", json.dumps(profile))
@@ -3993,6 +4168,7 @@ def main() -> int:
     build_s = build_all()
     sass = tensor_core_sass()
     errors, timing = kernel_phase()
+    reference, reference_cases = reference_phase()
     coll_losses, coll_times, coll_launches, profile = collective_phase()
     # phase 9 runs here, while this process holds little of the card: its
     # two processes need 27 GB each, and after phases 4-8 this process
@@ -4059,6 +4235,7 @@ def main() -> int:
         "bwd_pair": {case: timing[case]["bwd_pair"] for case in TIMED},
         "kernel_errors": errors,
         "kernel_readings": timing["readings"],
+        "kernel_reference_ratios": reference_cases,
     }
     log("PS paths, median of steps 2-4 (ms; plain_alone: the plain step "
         "before the others, plain: in turns with them; their D2H / core / "
@@ -4112,9 +4289,13 @@ def main() -> int:
             "source": "byteps_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": coll_launches[name],
             "max_abs_err": errors[name]["gpt2"], **timing["gpt2"][name],
+            # worst |err| / (atol + rtol |want|) at the JAX tests' bounds
+            # (the bf16 case reaches the forwards only)
+            "reference_ratio": reference[name].get("bfloat16"),
             # the f32 kernel at GPT-2's shape and on phase 13's path
             "f32": {"function": fn_f32, "launches": f32["launches"][name],
                     "max_abs_err": errors[name]["gpt2_f32"],
+                    "reference_ratio": reference[name]["float32"],
                     **timing["gpt2_f32"][name]},
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "shapes": {case: {"max_abs_err": errors[name][case],

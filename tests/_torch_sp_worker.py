@@ -14,7 +14,6 @@ on the inputs the test process saved, and save what each rank computed.
 import datetime
 import fcntl
 import os
-import socket
 import time
 
 import numpy as np
@@ -22,19 +21,13 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from byteps_tpu_torch.utils.ports import free_port
+
 WORLD = 4
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _spawn(fn, world, out_dir, timeout):
-    ctx = mp.spawn(fn, args=(world, _free_port(), out_dir), nprocs=world,
+    ctx = mp.spawn(fn, args=(world, free_port(), out_dir), nprocs=world,
                    join=False)
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):

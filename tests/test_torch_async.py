@@ -167,9 +167,10 @@ def test_async_step_needs_ps_mode():
 
 @pytest.mark.ps
 def test_fleet_async_two_workers_converge():
-    from ps_utils import free_port, spawn_worker, topology_env
+    from ps_utils import spawn_worker, topology_env
 
     from byteps_tpu_torch.core import build
+    from byteps_tpu_torch.utils.ports import free_port
     build.build(verbose=False)  # once, before the processes load it
     env = topology_env(2, 1, free_port(), {"BYTEPS_PS_MODE": "ps",
                                            "BYTEPS_ENABLE_ASYNC": "1"})

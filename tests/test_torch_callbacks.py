@@ -9,7 +9,6 @@ through the port's monitor.
 """
 
 import os
-import socket
 
 import numpy as np
 import pytest
@@ -21,6 +20,7 @@ import byteps_tpu.callbacks as jcb
 import byteps_tpu_torch as bps
 from byteps_tpu_torch import callbacks as cb
 from byteps_tpu_torch.monitor import metrics
+from byteps_tpu_torch.utils.ports import free_port
 from tests.ps_loopback import LoopbackClient, init_loopback
 
 
@@ -108,14 +108,6 @@ def test_monitor_callback_publishes_step_metrics():
 
 # --- two gloo processes -------------------------------------------------------
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _gloo_worker(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
@@ -151,7 +143,7 @@ def _gloo_worker(rank, world, port, out_dir):
 
 
 def test_broadcast_and_metric_average_over_gloo(tmp_path):
-    mp.spawn(_gloo_worker, args=(2, _free_port(), str(tmp_path)), nprocs=2,
+    mp.spawn(_gloo_worker, args=(2, free_port(), str(tmp_path)), nprocs=2,
              join=True)
     r0, r1 = (torch.load(tmp_path / f"r{i}.pt", weights_only=False)
               for i in range(2))

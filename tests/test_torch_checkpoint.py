@@ -10,7 +10,6 @@ tensors.
 
 import collections
 import os
-import socket
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +22,7 @@ import byteps_tpu.utils as jutils
 import byteps_tpu_torch as bps
 from byteps_tpu_torch.utils import (latest_step, restore_checkpoint,
                                     save_checkpoint)
+from byteps_tpu_torch.utils.ports import free_port
 
 
 @pytest.fixture(autouse=True)
@@ -203,14 +203,6 @@ def test_adamw_state_dict_round_trips(tmp_path):
 
 # --- two gloo processes -------------------------------------------------------
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _gloo_worker(rank, world, port, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -244,7 +236,7 @@ def _gloo_worker(rank, world, port, out_dir):
 
 
 def test_restore_broadcasts_rank_zero_over_gloo(tmp_path):
-    mp.spawn(_gloo_worker, args=(2, _free_port(), str(tmp_path)), nprocs=2,
+    mp.spawn(_gloo_worker, args=(2, free_port(), str(tmp_path)), nprocs=2,
              join=True)
     r0, r1 = (torch.load(tmp_path / f"r{i}.pt", weights_only=False)
               for i in range(2))

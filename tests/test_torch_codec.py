@@ -330,7 +330,10 @@ def _fleet(kind, out_dir, codec, hosts=2, per_host=1, timeout=240):
     port's package or the JAX package's, each with its own server
     module); with ``per_host`` 2 each host is the port's launcher with
     ``--workers-per-host 2`` (port) or a controller of 2 chips (jax)."""
-    from ps_utils import free_port, topology_env
+    from ps_utils import topology_env
+
+    from byteps_tpu_torch.utils.ports import free_port
+
     package = "byteps_tpu_torch" if kind == "port" else "byteps_tpu"
     env = topology_env(hosts, 1, free_port(), {
         "BYTEPS_PS_MODE": "ps", "BYTEPS_COMPRESSOR": codec,
@@ -423,7 +426,7 @@ def _results(text):
 
 
 def _launched(cmd, codec, timeout=420):
-    from ps_utils import free_port
+    from byteps_tpu_torch.utils.ports import free_port
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + REPO,
                DMLC_PS_ROOT_PORT=str(free_port()), JAX_PLATFORMS="cpu",
                BYTEPS_COMPRESSOR=codec)

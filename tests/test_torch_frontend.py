@@ -28,7 +28,6 @@ spawned ranks.
 import copy
 import importlib.util
 import os
-import socket
 import sys
 import types
 import warnings
@@ -39,6 +38,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import byteps_tpu_torch as bps
+from byteps_tpu_torch.utils.ports import free_port
 from tests.ps_loopback import LoopbackClient, init_loopback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -54,14 +54,6 @@ def _port_state(monkeypatch):
     torch.set_num_threads(threads)
     if bps.initialized():
         bps.shutdown()
-
-
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def _port_as_plugin():
@@ -118,7 +110,7 @@ def _scenario_rank(rank, world, port, mode):
 
 @pytest.mark.parametrize("mode", SCENARIOS)
 def test_reference_scenario_over_two_gloo_ranks(mode):
-    mp.spawn(_scenario_rank, args=(2, _free_port(), mode), nprocs=2,
+    mp.spawn(_scenario_rank, args=(2, free_port(), mode), nprocs=2,
              join=True)
 
 
@@ -290,7 +282,7 @@ def _opt_state_rank(rank, world, port, out_dir, case):
 
 
 def _opt_state_world(tmp_path, case):
-    mp.spawn(_opt_state_rank, args=(2, _free_port(), str(tmp_path), case),
+    mp.spawn(_opt_state_rank, args=(2, free_port(), str(tmp_path), case),
              nprocs=2, join=True)
     return [torch.load(tmp_path / f"r{r}.pt", weights_only=False)
             for r in range(2)]

@@ -8,7 +8,6 @@ leave their input as it was.
 """
 
 import os
-import socket
 
 import numpy as np
 import pytest
@@ -17,6 +16,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import byteps_tpu_torch as bps
+from byteps_tpu_torch.utils.ports import free_port
 from tests.ps_loopback import LoopbackClient, init_loopback
 
 
@@ -94,14 +94,6 @@ def test_declare_registers_the_tensor():
         bps.declare("w", torch.zeros(5))
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _gloo_worker(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
@@ -117,6 +109,6 @@ def _gloo_worker(rank, world, port, out_dir):
 
 
 def test_inplace_api_over_gloo(tmp_path):
-    mp.spawn(_gloo_worker, args=(2, _free_port(), str(tmp_path)), nprocs=2,
+    mp.spawn(_gloo_worker, args=(2, free_port(), str(tmp_path)), nprocs=2,
              join=True)
     assert sorted(os.listdir(tmp_path)) == ["ok0", "ok1"]

@@ -53,9 +53,11 @@ import torch.multiprocessing as mp
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import _torch_local_ps_worker as W  # noqa: E402
-from _torch_sp_worker import _free_port, run_once  # noqa: E402
+from _torch_sp_worker import run_once  # noqa: E402
 from wire_bound import (assert_near_reference, sgd_grads,  # noqa: E402
                         wire_error)
+
+from byteps_tpu_torch.utils.ports import free_port  # noqa: E402
 
 STEPS = 3
 ROWS = 8  # a batch: 4 rows a rank
@@ -373,7 +375,7 @@ def test_a_dead_rank_times_out_the_root_naming_the_leaf(tmp_path):
     raises, and no staging file is left."""
     torch.save(_inputs("death", timeout_s=3), tmp_path / "inputs.pt")
     ctx = mp.start_processes(W.dying_worker,
-                             args=(2, _free_port(), str(tmp_path)),
+                             args=(2, free_port(), str(tmp_path)),
                              nprocs=2, join=False, start_method="spawn")
     deadline = time.monotonic() + 180
     for p in ctx.processes:
@@ -434,7 +436,7 @@ def test_fleet_two_hosts_of_two_ranks_match_one_process(tmp_path):
     whole batches (rtol 1e-5), the counterpart of ``tests/test_ps_core.py``'s
     ``test_jax_overlapped_training_multichip_controller``; no staging file
     is left."""
-    from ps_utils import free_port, topology_env
+    from ps_utils import topology_env
 
     from byteps_tpu_torch.core import build
     build.build(verbose=False)  # once, before the processes load it

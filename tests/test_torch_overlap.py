@@ -632,9 +632,10 @@ def test_fleet_two_workers_match_single_process(mode):
     batch."""
     import subprocess
 
-    from ps_utils import free_port, spawn_worker, topology_env
+    from ps_utils import spawn_worker, topology_env
 
     from byteps_tpu_torch.core import build
+    from byteps_tpu_torch.utils.ports import free_port
     build.build(verbose=False)  # once, before the processes load it
     env = topology_env(2, 1, free_port(), {"BYTEPS_PS_MODE": "ps"})
     procs = [(role, subprocess.Popen(

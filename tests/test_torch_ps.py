@@ -78,9 +78,10 @@ def _spawn_role(role, env):
 
 @pytest.mark.ps
 def test_fleet_two_workers_two_servers():
-    from ps_utils import free_port, spawn_worker, topology_env
+    from ps_utils import spawn_worker, topology_env
 
     from byteps_tpu_torch.core import build
+    from byteps_tpu_torch.utils.ports import free_port
     build.build(verbose=False)  # once, before four processes load it
     env = topology_env(2, 2, free_port(), {"BYTEPS_PS_MODE": "ps"})
     procs = [("scheduler", _spawn_role("scheduler", env)),

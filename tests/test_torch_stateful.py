@@ -30,7 +30,6 @@ steps on both sides, more than any fixed f32 tolerance.
 """
 
 import os
-import socket
 import sys
 
 import jax
@@ -53,6 +52,7 @@ from byteps_tpu.parallel.mesh import MeshSpec, build_mesh  # noqa: E402
 from byteps_tpu_torch.models import resnet  # noqa: E402
 from byteps_tpu_torch.stateful import (  # noqa: E402
     cross_entropy_loss, make_stateful_train_step)
+from byteps_tpu_torch.utils.ports import free_port  # noqa: E402
 from ps_loopback import LoopbackClient, init_loopback  # noqa: E402
 from test_torch_resnet import _variables  # noqa: E402
 
@@ -194,14 +194,6 @@ def test_cross_entropy_matches_flax():
 
 # --- two gloo processes ------------------------------------------------------
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _gloo_worker(rank, world, port, out_dir, variables, batches):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -220,7 +212,7 @@ def _gloo_worker(rank, world, port, out_dir, variables, batches):
 
 def test_two_process_gloo_matches_two_device_mesh(setup, tmp_path):
     variables, batches = setup
-    mp.spawn(_gloo_worker, args=(2, _free_port(), str(tmp_path), variables,
+    mp.spawn(_gloo_worker, args=(2, free_port(), str(tmp_path), variables,
                                  batches), nprocs=2, join=True)
     got = [torch.load(tmp_path / f"r{i}.pt", weights_only=False)
            for i in range(2)]

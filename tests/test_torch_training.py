@@ -14,7 +14,6 @@
 """
 
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +37,7 @@ from byteps_tpu_torch.models.transformer import (TransformerLM, from_flax,
 from byteps_tpu_torch.parallel.hierarchical import (tree_all_reduce,
                                                     tree_broadcast)
 from byteps_tpu_torch.training import make_train_step
+from byteps_tpu_torch.utils.ports import free_port
 
 CFG = dict(vocab_size=64, num_layers=2, d_model=32, num_heads=4, mlp_dim=64,
            max_len=16)
@@ -117,14 +117,6 @@ def test_collective_step_matches_jax_mesh(opt):
 
 # --- two gloo processes -------------------------------------------------------
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _gloo_worker(rank, world, port, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -194,7 +186,7 @@ def _gloo_worker(rank, world, port, out_dir):
 
 
 def test_two_process_gloo_collectives(tmp_path):
-    mp.spawn(_gloo_worker, args=(2, _free_port(), str(tmp_path)), nprocs=2,
+    mp.spawn(_gloo_worker, args=(2, free_port(), str(tmp_path)), nprocs=2,
              join=True)
     r = [torch.load(tmp_path / f"r{i}.pt", weights_only=False)
          for i in range(2)]
@@ -264,7 +256,7 @@ def _grid_worker(rank, world, port, out_dir):
 
 
 def test_two_level_grid_collectives(tmp_path):
-    mp.spawn(_grid_worker, args=(4, _free_port(), str(tmp_path)), nprocs=4,
+    mp.spawn(_grid_worker, args=(4, free_port(), str(tmp_path)), nprocs=4,
              join=True)
     base = np.random.default_rng(7).standard_normal(7)
     for i in range(4):

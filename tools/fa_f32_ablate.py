@@ -27,11 +27,19 @@ A variant that drops work computes a wrong result: its time only says what
 that work costs. Prints one JSON object: the card's name and power limit,
 and {variant: {kernel: [median, min, max] ms}}, and for each layout
 variant its dQ's largest difference from the committed dQ.
+
+    python3 tools/fa_f32_ablate.py --reference
+
+instead runs ``chip_smoke.reference_phase`` (the kernels end to end at the
+JAX tests' own tolerances) on the committed kernels and on ``hi_only``,
+the control: one TF32 product a product must miss those bounds. Prints
+each one's worst ratio a kernel, or the cases it failed.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import os
 import sys
@@ -103,11 +111,33 @@ VARIANTS = {
 LAYOUTS = [name for name in VARIANTS if name.startswith("dq_")]
 
 
+def reference_control():
+    """chip_smoke.reference_phase on the committed build and on hi_only."""
+    import chip_smoke
+    from byteps_tpu_torch.ops import _cuda_lib
+    from fa_fwd_ablate import build_all, card
+    fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+    libs = build_all({name: VARIANTS[name]
+                      for name in ("committed", "hi_only")})
+    out = {"card": card()}
+    for name, path in libs.items():
+        _cuda_lib.load = lambda _name, path=path: ctypes.CDLL(path)
+        fa._lib = None  # the wrappers load ``path`` at their next launch
+        try:
+            out[name] = {"worst": chip_smoke.reference_phase()[0]}
+        except AssertionError as e:
+            out[name] = {"failed": str(e).splitlines()[1:]}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("fa_f32_ablate: needs a CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--reference"]:
+        return reference_control()
     from chip_smoke import _time_alternating
     from fa_fwd_ablate import build_all, card
     libs = build_all(VARIANTS)
