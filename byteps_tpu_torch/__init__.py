@@ -30,6 +30,7 @@ import collections
 import dataclasses
 import io
 import threading
+import time
 from typing import Any, Optional
 
 import torch
@@ -41,6 +42,7 @@ from byteps_tpu_torch.config import Config, get_config
 from byteps_tpu_torch.parallel import hierarchical as _h
 from byteps_tpu_torch.parallel.mesh import Mesh, set_global_mesh
 from byteps_tpu_torch.partition import TensorRegistry
+from byteps_tpu_torch.utils import timeline as _tl
 
 __all__ = [
     "init", "shutdown", "initialized", "rank", "size", "local_rank",
@@ -598,26 +600,70 @@ class _Distributed:
             finally:
                 self._taps.reset_window()
             return
+        # under the step trace: the synchronize span, and compute-stream
+        # marks at entry and, where push_pull enqueues nothing on the
+        # card (one process, no cast), at exit
+        rec = self.timings
+        traced = _tl.steps is not None and "spans" in rec
+        if traced:
+            t0 = time.perf_counter()
+            _tl.mark(rec, "synchronize", self._card_stream())
         params = [p for g in self.param_groups for p in g["params"]
                   if p.grad is not None]
-        if not params:
-            return
-        grads = push_pull([p.grad for p in params], average=self.average,
-                          name="grad", compression=self.compression)
-        for p, g in zip(params, grads):
-            p.grad = g
+        if params:
+            grads = push_pull([p.grad for p in params], average=self.average,
+                              name="grad", compression=self.compression)
+            for p, g in zip(params, grads):
+                p.grad = g
+        if traced:
+            st = _st()
+            if (_h.group_size(st.group) * _h.group_size(st.dcn_group) == 1
+                    and self.compression.name == "none"):
+                _tl.mark(rec, "synchronized", self._card_stream())
+            _tl.add_span(rec, "synchronize", t0, time.perf_counter())
+
+    def _card_stream(self):
+        """The current stream of the parameters' card; None on the CPU."""
+        from byteps_tpu_torch import ps as _ps
+        return _ps._caller_stream([p for g in self.param_groups
+                                   for p in g["params"]])
 
     def step(self, closure=None):
         self.synchronize()
-        return super().step(closure)
+        # under the step trace: the wrapped optimizer's update, its span
+        # and a compute-stream mark after it
+        rec = self.timings
+        traced = _tl.steps is not None and "spans" in rec
+        if traced:
+            t0 = time.perf_counter()
+        out = super().step(closure)
+        if traced:
+            _tl.add_span(rec, "update", t0, time.perf_counter())
+            _tl.mark(rec, "update", self._card_stream())
+        return out
 
     def zero_grad(self, set_to_none: bool = True) -> None:
+        # under the step trace it opens the step's record (PS mode: the
+        # window's, which ``timings`` then becomes), with its span and a
+        # compute-stream mark at entry, the step's start
+        tr = _tl.steps
+        if tr is not None:
+            t0 = time.perf_counter()
+            ev = _tl.card_event(self._card_stream())
         if self._taps is not None:
             # a failed step may have left pushes in flight: settle them
             # and start the next window clean
             self._taps.settle()
             self._taps.reset_window()
         super().zero_grad(set_to_none=set_to_none)
+        if tr is not None:
+            rec = (self._taps.timeline if self._taps is not None
+                   else tr.open())
+            if "spans" in rec:  # else the trace stopped meanwhile
+                if self._taps is None:
+                    self.timings = rec
+                _tl.add_span(rec, "zero_grad", t0, time.perf_counter())
+                _tl.add_mark(rec, "zero_grad", ev)
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,

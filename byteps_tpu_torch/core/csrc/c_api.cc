@@ -425,6 +425,24 @@ int bps_dump_flight(const char* path) {
 // always-recording behavior; with steps reported, recording stops
 // outside the window instead of accumulating without bound.
 void bps_trace_step(int step) { Trace::Get().SetStep(step); }
+// --- port only: the step trace's switch and clock
+
+// Arm (1) or disarm (0) the main trace ring at run time, whatever
+// BYTEPS_TRACE_ON and the step window say, with the worker's trace
+// sites: the Python step trace records the worker's enqueue, push, pull
+// and sum records only for its steps.
+void bps_trace_arm(int on) {
+  Trace::Get().Arm(on != 0);
+  Global* gl = g();
+  if (gl->inited && gl->worker) {
+    gl->worker->SetTraceOn(on != 0 || EnvBool("BYTEPS_TRACE_ON"));
+  }
+}
+
+// The core's span clock (CLOCK_MONOTONIC microseconds), for checking
+// that host spans stamped with time.perf_counter share it.
+long long bps_now_us() { return static_cast<long long>(NowUs()); }
+// --- end port only
 
 // App-level annotation: record an instant into the main trace ring and
 // the flight recorder (also the test hook for ring wraparound).

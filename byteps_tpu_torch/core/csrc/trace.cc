@@ -107,7 +107,19 @@ void Trace::RecomputeArmed() {
   bool in_window = s < 0 || (s >= win_start_ && s <= win_end_);
   main_armed_.store(trace_env_on_ && in_window,
                     std::memory_order_relaxed);
+  // --- port only: armed at run time, in any window
+  if (runtime_on_.load(std::memory_order_relaxed)) {
+    main_armed_.store(true, std::memory_order_relaxed);
+  }
+  // --- end port only
 }
+// --- port only: Trace::Arm
+
+void Trace::Arm(bool on) {
+  runtime_on_.store(on, std::memory_order_relaxed);
+  RecomputeArmed();
+}
+// --- end port only
 
 void Trace::SetStep(int step) {
   step_.store(step, std::memory_order_relaxed);

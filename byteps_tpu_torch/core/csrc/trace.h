@@ -153,6 +153,12 @@ class Trace {
   // (step < 0) leave the window open — raw FFI users keep the old
   // always-recording behavior.
   void SetStep(int step);
+  // --- port only: runtime arming of the main ring, whatever
+  // BYTEPS_TRACE_ON and its step window say: the step trace
+  // (utils/timeline.py start_steps / stop_steps) turns it on for the
+  // steps it records.
+  void Arm(bool on);
+  // --- end port only
 
   bool MainOn() const { return main_armed_.load(std::memory_order_relaxed); }
   bool FlightOn() const { return flight_on_; }
@@ -199,6 +205,9 @@ class Trace {
   int win_start_ = 1;
   int win_end_ = 1 << 30;
   std::atomic<bool> main_armed_{false};
+  // --- port only: Arm's switch
+  std::atomic<bool> runtime_on_{false};
+  // --- end port only
   std::atomic<int> step_{-1};
   std::atomic<int> role_{-1};
   std::atomic<int> node_id_{-1};

@@ -797,6 +797,12 @@ void BytePSWorker::SendPush(PushOp op) {
         RoundStats::Get().Track(RS_PUSH, version, NowUs() - t_push,
                                 plen);
         RoundStats::Get().Track(RS_SUM, version, ack.head.arg0);
+        // --- port only: the server's sum of this key (aux, us), at its ack
+        if (trace_on_) {
+          Trace::Get().Instant("sum", p->key, p->server_id, ack.head.req_id,
+                               static_cast<int32_t>(ack.head.arg0), version);
+        }
+        // --- end port only
         RecTrackAck(p);
         // Async: the ack carries the server's fleet-wide apply count
         // for this key as of OUR push; the pull resp carries it as
@@ -1097,6 +1103,12 @@ void BytePSWorker::OnFusedAck(
     RoundStats::Get().Track(RS_PUSH, op.version, NowUs() - t_push,
                             op.payload_len);
     RoundStats::Get().Track(RS_SUM, op.version, subs[i].arg0);
+    // --- port only: the server's sum of this key (aux, us), at its ack
+    if (trace_on_) {
+      Trace::Get().Instant("sum", op.p->key, server_id, ack.head.req_id,
+                           static_cast<int32_t>(subs[i].arg0), op.version);
+    }
+    // --- end port only
     (*at_push)[i] = subs[i].arg1;  // async apply count as of our push
     SubHeader& s = table[i];
     s.key = op.p->key;

@@ -45,6 +45,10 @@ class BytePSWorker {
              int64_t credit_bytes, int64_t fusion_bytes, int fusion_keys,
              std::string default_comp, bool trace_on);
   void Stop();
+  // --- port only: the step trace's runtime switch (bps_trace_arm)
+  // turns the trace sites on and off while the worker runs
+  void SetTraceOn(bool on) { trace_on_ = on; }
+  // --- end port only
   // Cumulative async-pull staleness stats (see stale_* members).
   void StalenessStats(long long* sum, long long* max_out,
                       long long* count) const {
@@ -282,7 +286,9 @@ class BytePSWorker {
   int quant_block_ = 64;             // BYTEPS_WIRE_QUANT_BLOCK
   int64_t quant_min_bytes_ = 1024;   // BYTEPS_WIRE_QUANT_MIN_BYTES
   std::string default_comp_;
-  bool trace_on_ = false;
+  // --- port only: atomic, as SetTraceOn writes it while the worker runs
+  std::atomic<bool> trace_on_{false};
+  // --- end port only
 
   // Fusion collector: while a PushLoop thread assembles a batch, its
   // tasks stage PushOps here instead of sending (thread-local — each

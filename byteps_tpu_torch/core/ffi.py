@@ -89,6 +89,10 @@ def _load() -> ctypes.CDLL:
     lib.bps_dump_flight.restype = ctypes.c_int
     lib.bps_trace_step.argtypes = [ctypes.c_int]
     lib.bps_trace_step.restype = None
+    lib.bps_trace_arm.argtypes = [ctypes.c_int]
+    lib.bps_trace_arm.restype = None
+    lib.bps_now_us.argtypes = []
+    lib.bps_now_us.restype = ctypes.c_longlong
     lib.bps_trace_note.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
     lib.bps_trace_note.restype = None
     lib.bps_reducer_bench.argtypes = [ctypes.c_longlong, ctypes.c_int,
@@ -215,6 +219,19 @@ def round_summary() -> dict:
         if need < size:
             return json.loads(buf.value.decode())
         size = need + 1
+
+
+def trace_arm(on: bool) -> None:
+    """Arm or disarm the main trace ring and the worker's trace sites at
+    run time (the step trace's switch, ``utils.timeline.start_steps``),
+    whatever BYTEPS_TRACE_ON says; disarmed, the sites are as
+    BYTEPS_TRACE_ON left them."""
+    _load().bps_trace_arm(1 if on else 0)
+
+
+def now_us() -> int:
+    """The core's span clock: CLOCK_MONOTONIC in microseconds."""
+    return int(_load().bps_now_us())
 
 
 # RoundStage values (mirror csrc/roundstats.h).

@@ -89,6 +89,7 @@ import byteps_tpu_torch as bps
 from byteps_tpu_torch import local_stage, ps
 from byteps_tpu_torch.parallel import hierarchical as _h
 from byteps_tpu_torch.parallel.hierarchical import _blockwise_quantize
+from byteps_tpu_torch.utils import timeline as _tl
 
 WIRE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
                "float16": torch.float16, "int8": torch.int8}
@@ -169,6 +170,9 @@ class _TapState:
         self.ready: Dict[int, Tuple[torch.Tensor, object]] = {}
         self.cancelled = False
         self.round = 0
+        # windows started so far: the step trace's step id, which in PS
+        # mode is the core's round of the window's pushes
+        self.windows = 0
         # (leaf, shard) -> (handle, error): what the stager enqueued
         self.inflight: Dict[Tuple[int, int],
                             Tuple[Optional[int], Optional[Exception]]] = {}
@@ -191,17 +195,25 @@ class _TapState:
                                          self.stager)
         self._release.atexit = False
 
-    @staticmethod
-    def _new_timeline() -> dict:
+    def _new_timeline(self) -> dict:
         """One window's host clock readings: pushes enqueued (this
         process's, with their bytes), slices staged into the host's
         shared staging (local group; with their bytes), ``landed`` (the
         last pull waited; a local group: the all-gather done), and the
-        seconds of each leg of the local group's path."""
-        return {"pushes": [], "staged": [], "landed": None,
-                "split_s": dict.fromkeys(
-                    ("reduce_scatter", "d2h", "core", "h2d", "all_gather"),
-                    0.0)}
+        seconds of each leg of the local group's path. While a step trace
+        runs (``utils.timeline.start_steps``) it is also the window's
+        record, under step id ``windows``; with one process its ``spans``
+        and ``marks`` then take each leaf's ``hook``, each D2H batch
+        (``d2h``), each ``push`` enqueued, ``collect`` and under it each
+        shard's ``wait`` and ``upload``."""
+        rec = {"pushes": [], "staged": [], "landed": None,
+               "split_s": dict.fromkeys(
+                   ("reduce_scatter", "d2h", "core", "h2d", "all_gather"),
+                   0.0)}
+        tr = _tl.steps
+        if tr is not None:
+            tr.open(self.windows, rec)
+        return rec
 
     def declare_all(self, leaves) -> None:
         """Declare every leaf's k shards in model order (the core's
@@ -323,7 +335,19 @@ class _TapState:
             self._ready([i])
             return
         b = self.bucket_of[i]
-        self.staged[b].append(self.wire(i))
+        entry = self.wire(i)
+        rec = self.timeline
+        if "spans" in rec:
+            t = time.perf_counter()
+            _tl.add_span(rec, "hook", t, t, leaf=i, nbytes=sum(
+                src.nbytes for src in entry[1]))
+            if len(self.fired) == len(self.params):
+                # the card's end of backward: a timing event after the
+                # last leaf's alone, since one after every leaf's ready
+                # event shortens the PS tail (PERF.md, the step trace)
+                _tl.mark(rec, "hook", ps._caller_stream(self.params),
+                         leaf=i)
+        self.staged[b].append(entry)
         if self.buckets is None:
             self.stager.submit(self._drain, b)
             return
@@ -348,12 +372,22 @@ class _TapState:
         """Copy the wires of ``batch`` [(leaf, wire tensors, event)] to
         their host buffers as one batch on the copy stream, behind the
         events, and wait for it."""
-        done = ps.copy_to_host(
-            [(src, buf) for i, srcs, _ in batch
-             for src, buf in zip(srcs, self.wire_bufs[(i, 0)])],
-            [ev for _, _, ev in batch if ev is not None], self.copy_stream)
+        pairs = [(src, buf) for i, srcs, _ in batch
+                 for src, buf in zip(srcs, self.wire_bufs[(i, 0)])]
+        ready = [ev for _, _, ev in batch if ev is not None]
+        rec = self.timeline
+        traced = "spans" in rec
+        if traced:
+            t0 = time.perf_counter()
+        done = ps.copy_to_host(pairs, ready, self.copy_stream)
         if done is not None:
             done.synchronize()
+        if traced:
+            # from the copies' enqueue to the wait's return: its end is
+            # the host's view of the copies' end, with no event of its own
+            _tl.add_span(rec, "d2h", t0, time.perf_counter(),
+                         leaf=tuple(i for i, _, _ in batch),
+                         nbytes=sum(buf.nbytes for _, buf in pairs))
 
     def _drain(self, b: int) -> None:
         """On the stager thread: copy what is staged in queue ``b`` to the
@@ -445,8 +479,11 @@ class _TapState:
     def _record(self, key, rec) -> None:
         with self.cv:
             self.inflight[key] = rec
-            self.timeline["pushes"].append((time.perf_counter(),
-                                            self.push_bufs[key].nbytes))
+            t, n = time.perf_counter(), self.push_bufs[key].nbytes
+            self.timeline["pushes"].append((t, n))
+            if "spans" in self.timeline:
+                _tl.add_span(self.timeline, "push", t, t, leaf=key[0],
+                             nbytes=n)
             self.cv.notify_all()
 
     def expand(self, key) -> torch.Tensor:
@@ -481,6 +518,8 @@ class _TapState:
         """Start an accumulation window with no pass counted and nothing
         in flight (``settle`` has run for any window that failed)."""
         with self.cv:
+            if self.fired:
+                self.windows += 1
             self.passes = [0] * len(self.params)
             self.fired.clear()
             # a failed backward can leave a bucket staged but never full
@@ -550,14 +589,35 @@ class _TapState:
             ps.run_ordered_on(ps._caller_stream(self.params),
                               self._collect_local, deadline)
             return
+        # under the step trace: the collect span, under it each shard's
+        # wait and upload, then a copy-stream mark after the uploads and
+        # a compute-stream mark (collected): a timing event costs the
+        # host tens of microseconds, too much for each leaf in the tail
+        rec = self.timeline
+        traced = "spans" in rec
+        if traced:
+            t0 = w1 = time.perf_counter()
         err = None
         for i in range(len(self.params)):
             e = self._wait_shard((i, 0), deadline)
+            if traced:
+                w0, w1 = w1, time.perf_counter()
+                _tl.add_span(rec, "wait", w0, w1, "collect", i)
             if e is not None:
                 err = err or e
             elif err is None:
                 self.upload(i)
+                if traced:
+                    w0, w1 = w1, time.perf_counter()
+                    _tl.add_span(rec, "upload", w0, w1, "collect", i,
+                                 self.push_bufs[(i, 0)].nbytes)
         self.timeline["landed"] = time.perf_counter()
+        if traced:
+            if self.copy_stream is not None:
+                _tl.mark(rec, "uploaded", self.copy_stream, "copy")
+                _tl.mark(rec, "collected", torch.cuda.current_stream(
+                    self.copy_stream.device))
+            _tl.add_span(rec, "collect", t0, self.timeline["landed"])
         if err is not None:
             self.settle()
             raise err

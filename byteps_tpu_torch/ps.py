@@ -54,6 +54,7 @@ import byteps_tpu_torch as bps
 from byteps_tpu_torch import local_stage
 from byteps_tpu_torch.parallel import hierarchical as _h
 from byteps_tpu_torch.parallel.hierarchical import tree_flatten
+from byteps_tpu_torch.utils import timeline as _tl
 
 # --- ordered bridge execution ----------------------------------------------
 # Wire keys are (declaration-order id << 16 | partition): worker.cc's
@@ -125,14 +126,6 @@ _tid_cache: dict = {}
 # Steps that declared at least one NEW tensor (after warm-up this must
 # stop growing: one registration per tensor lifetime).
 declare_steps: int = 0
-# Seconds spent in the last ps_push_pull / ps_broadcast: the D2H copy
-# (waited for), the core's push/sum/pull, and the H2D copy (waited for).
-# With a local group (``local_push_pull``) also the reduce-scatter and the
-# all-gather (host clock from their enqueue to the next wait).
-last_timings = {"d2h_s": 0.0, "core_s": 0.0, "h2d_s": 0.0}
-# Bytes of the last local_push_pull: this rank's D2H copies into the
-# shared staging, and what this process pushed (the root: every leaf).
-last_bytes = {"d2h": 0, "pushed": 0}
 # (prefix, shape signature, wire dtypes) -> the host's shared staging of
 # that tree (local group of k > 1), made at its first use by every rank
 # together. Closed by init()/shutdown().
@@ -330,12 +323,23 @@ def _run_staged(tree, op, prefix, stream):
         t0 = time.perf_counter()
         host = _stage_d2h(leaves, plan)
         t1 = time.perf_counter()
-        _exchange(client, prefix, leaves, plan, host, op, override)
+        pushed = _exchange(client, prefix, leaves, plan, host, op, override)
         t2 = time.perf_counter()
         out = _stage_h2d(host, leaves)
         t3 = time.perf_counter()
-    last_timings.update(d2h_s=t1 - t0, core_s=t2 - t1, h2d_s=t3 - t2)
+    tr = _tl.steps
+    if tr is not None:
+        _legs(tr.current(), (("d2h", t0, t1, pushed),
+                             ("core", t1, t2, pushed),
+                             ("h2d", t2, t3, pushed)))
     return unflatten(out)
+
+
+def _legs(rec: dict, legs) -> None:
+    """The plain path's legs [(name, start, end, bytes)] as spans of the
+    step trace's record ``rec``, under the parent "push_pull"."""
+    for name, start, end, nbytes in legs:
+        _tl.add_span(rec, name, start, end, "push_pull", nbytes=nbytes)
 
 
 def _caller_stream(tree):
@@ -495,9 +499,11 @@ def _local_leg(slices, numels, average: bool, prefix: str, compression,
     if pin:
         torch.cuda.current_stream().synchronize()
     marks["end"] = time.perf_counter()
-    last_timings.update(d2h_s=t1 - marks["leg"], core_s=t2 - t1,
-                        h2d_s=marks["end"] - t2)
-    last_bytes.update(d2h=sum(m.nbytes for m in mine), pushed=pushed)
+    tr = _tl.steps
+    if tr is not None:
+        _legs(tr.current(), (
+            ("d2h", marks["leg"], t1, sum(m.nbytes for m in mine)),
+            ("core", t1, t2, pushed), ("h2d", t2, marks["end"], 0)))
     return out
 
 
@@ -523,8 +529,11 @@ def local_push_pull(leaves, average: bool, prefix: str, compression):
                                      average, prefix, compression, marks))
         if stream is not None:
             stream.synchronize()
-        last_timings.update(reduce_scatter_s=marks["leg"] - t0,
-                            all_gather_s=time.perf_counter() - marks["end"])
+        tr = _tl.steps
+        if tr is not None:
+            _legs(tr.current(), (
+                ("reduce_scatter", t0, marks["leg"], 0),
+                ("all_gather", marks["end"], time.perf_counter(), 0)))
         return out
 
     return run_ordered_on(stream, run)

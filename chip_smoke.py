@@ -746,8 +746,8 @@ def _train(label, lm=GPT2, steps=STEPS, **make_kw):
     import torch
 
     import byteps_tpu_torch as bps
-    from byteps_tpu_torch import ps
     from byteps_tpu_torch.training import make_train_step
+    from byteps_tpu_torch.utils import timeline
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
     torch.cuda.reset_peak_memory_stats()
@@ -760,12 +760,13 @@ def _train(label, lm=GPT2, steps=STEPS, **make_kw):
     losses, times, staging = [], [], []
     fa.reset_launches()
     for _ in range(steps):
+        timeline.start_steps()  # PS mode: its legs are the trace's spans
         t0 = time.perf_counter()
         loss = step(model, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
-        staging.append(dict(ps.last_timings))
+        staging.append(timeline.leg_seconds(timeline.stop_steps()))
     launches = dict(fa.LAUNCHES)
     _check_launches(label, launches, lm.layers, steps,
                     make_kw.get("remat", False))
@@ -1185,7 +1186,7 @@ def _ps_paths_in_turns(collective_losses, labels=PS_PATHS, lm=GPT2):
     import torch
 
     import byteps_tpu_torch as bps
-    from byteps_tpu_torch import ps
+    from byteps_tpu_torch.utils import timeline
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
     torch.cuda.reset_peak_memory_stats()
@@ -1201,6 +1202,8 @@ def _ps_paths_in_turns(collective_losses, labels=PS_PATHS, lm=GPT2):
             model, step = paths[label]
             out = rec[label]
             fa.reset_launches()
+            if label == "ps":  # its legs are the step trace's spans
+                timeline.start_steps()
             t0 = time.perf_counter()
             loss = step(model, tokens)
             torch.cuda.synchronize()
@@ -1209,7 +1212,8 @@ def _ps_paths_in_turns(collective_losses, labels=PS_PATHS, lm=GPT2):
                 out["launches"][k] += v
             out["losses"].append(loss.item())
             if label == "ps":
-                out["staging"].append(dict(ps.last_timings))
+                out["staging"].append(
+                    timeline.leg_seconds(timeline.stop_steps()))
             else:
                 out["steps"].append(_overlap_record(step.timings))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1422,12 +1426,12 @@ def _resnet_paths(labels, batch, keep=False):
     step of each, starting one path later than the round before), each
     from its own seed-0 model. The flash kernels' launch counts are set to
     0 just before each step and read just after. Records the losses, step
-    times, PS staging (``ps.last_timings``), the overlap's host clock
-    readings, and the BatchNorm buffers after the last step. With
-    ``keep`` the models and steps are returned too."""
+    times, PS staging (the plain path's legs, ``timeline.leg_seconds``),
+    the overlap's host clock readings, and the BatchNorm buffers after the
+    last step. With ``keep`` the models and steps are returned too."""
     import torch
 
-    from byteps_tpu_torch import ps
+    from byteps_tpu_torch.utils import timeline
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
     paths = {}
@@ -1442,6 +1446,8 @@ def _resnet_paths(labels, batch, keep=False):
             model, run = paths[label]
             out = rec[label]
             fa.reset_launches()
+            if label in ("ps", "async"):
+                timeline.start_steps()
             t0 = time.perf_counter()
             loss = run(batch)
             torch.cuda.synchronize()
@@ -1449,7 +1455,8 @@ def _resnet_paths(labels, batch, keep=False):
             out["launches"] += sum(fa.LAUNCHES.values())
             out["losses"].append(loss.item())
             if label in ("ps", "async"):
-                out["staging"].append(dict(ps.last_timings))
+                out["staging"].append(
+                    timeline.leg_seconds(timeline.stop_steps()))
             elif label.startswith("dopt"):
                 out["steps"].append(_overlap_record(run.timings))
     for label, (model, run) in paths.items():
@@ -1878,12 +1885,13 @@ def _trace_check(path):
     kernels, and whether the spans sit, after the clock shift, inside the
     profiler's time range and after the step's first forward kernel (a
     push waits for its gradient, which waits for the forward)."""
-    from byteps_tpu_torch.utils.timeline import _DCN_PID
+    from byteps_tpu_torch.utils.timeline import _CARD_PID, _DCN_PID, _HOST_PID
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if "ts" in e]
     core = [e for e in events if e.get("pid") == _DCN_PID
             and e.get("name") in ("push", "pull")]
-    prof = [e for e in events if e.get("pid") != _DCN_PID]
+    prof = [e for e in events
+            if e.get("pid") not in (_DCN_PID, _HOST_PID, _CARD_PID)]
     lo = min(float(e["ts"]) for e in prof)
     hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in prof)
     kernels = {}
@@ -3407,19 +3415,16 @@ def _local_reference(tmp):
     return losses, numels
 
 
-def _local_step_record(label, step):
+def _local_step_record(label, step, legs):
     """One step's staging readings on this rank: the five legs' seconds,
     the bytes copied into the host's shared staging and pushed, and the
-    exposed communication (the hook-driven paths)."""
-    from byteps_tpu_torch import ps
+    exposed communication (the hook-driven paths). ``legs``: the plain
+    path's, from the step trace (``timeline.leg_seconds``)."""
     if label == "ps":
-        t = ps.last_timings
-        return {"split_s": {"reduce_scatter": t["reduce_scatter_s"],
-                            "d2h": t["d2h_s"], "core": t["core_s"],
-                            "h2d": t["h2d_s"],
-                            "all_gather": t["all_gather_s"]},
-                "d2h_bytes": ps.last_bytes["d2h"],
-                "pushed_bytes": ps.last_bytes["pushed"]}
+        return {"split_s": {k: legs[k + "_s"] for k in (
+                    "reduce_scatter", "d2h", "core", "h2d", "all_gather")},
+                "d2h_bytes": legs["d2h_bytes"],
+                "pushed_bytes": legs["pushed_bytes"]}
     t = step.timings
     return {"split_s": dict(t["split_s"]),
             "d2h_bytes": sum(n for _, n in t["staged"]),
@@ -3449,6 +3454,7 @@ def local_ps_worker(out_dir, port):
     import byteps_tpu_torch as bps
     from byteps_tpu_torch import local_stage
     from byteps_tpu_torch.parallel import _collectives as C
+    from byteps_tpu_torch.utils import timeline
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
     torch.cuda.set_device(0)
@@ -3490,15 +3496,17 @@ def local_ps_worker(out_dir, port):
                     torch.cuda.synchronize()
                     C.reset_bytes()
                     fa.reset_launches()
+                    timeline.start_steps()
                     t0 = time.perf_counter()
                     loss = step(model, tokens)
                     torch.cuda.synchronize()
                     out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                    legs = timeline.leg_seconds(timeline.stop_steps())
                     out["losses"].append(loss.item())
                     for k, v in fa.LAUNCHES.items():
                         out["launches"][k] += v
                     out["steps"].append(dict(
-                        _local_step_record(label, step),
+                        _local_step_record(label, step, legs),
                         gloo_staged_bytes=C.BYTES["staged"]))
             out["flash_shapes"] = sorted(shapes)
             out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -3830,14 +3838,15 @@ def _codec_fleet(run, base, lm, evaluate=False):
     its loss, host ms, the wire bytes each way (the root client's
     ``net_bytes()`` around the step), the flash launches (counts set to
     0 just before the step, read just after) and, for the plain step,
-    ``ps.last_timings``' D2H / core / H2D split; with ``evaluate``, then
-    one evaluation forward of the first path's model."""
+    the D2H / core / H2D split of its legs (``timeline.leg_seconds``);
+    with ``evaluate``, then one evaluation forward of the first path's
+    model."""
     import gc
 
     import torch
 
     import byteps_tpu_torch as bps
-    from byteps_tpu_torch import ps
+    from byteps_tpu_torch.utils import timeline
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
 
     codec, labels, steps = CODEC_RUNS[run]
@@ -3862,6 +3871,8 @@ def _codec_fleet(run, base, lm, evaluate=False):
                     out["lr"].append(step.lr())
                     sent, received = client.net_bytes()
                     fa.reset_launches()
+                    if label.startswith("ps"):
+                        timeline.start_steps()
                     t0 = time.perf_counter()
                     loss = step(model, tokens)
                     torch.cuda.synchronize()
@@ -3874,7 +3885,9 @@ def _codec_fleet(run, base, lm, evaluate=False):
                     out["losses"].append(loss.item())
                     if label.startswith("ps"):
                         out["staging"].append(
-                            {k: v * 1e3 for k, v in ps.last_timings.items()})
+                            {k: v * 1e3 for k, v in timeline.leg_seconds(
+                                timeline.stop_steps()).items()
+                             if k.endswith("_s")})
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             if evaluate:
                 evaluation = dict(zip(

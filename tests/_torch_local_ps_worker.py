@@ -157,7 +157,7 @@ def _plant(fault, step, rank):
 
 def _run_path(path, inputs, rank, client, fault=None):
     """STEPS steps of ``path`` on this rank's half of each batch."""
-    from byteps_tpu_torch import ps
+    from byteps_tpu_torch.utils import timeline
     _, _, average = PATHS[path]
     model = _model(inputs["params"])
     first = len(client.declares) if client else 0
@@ -167,13 +167,17 @@ def _run_path(path, inputs, rank, client, fault=None):
         _plant(fault, step, rank)
     half = inputs["batches"][0].shape[0] // 2
     out = {"losses": [], "d2h_bytes": [], "pushed_bytes": [], "split_s": []}
+    plain = PATHS[path][0] == "train_step"
     for b in inputs["batches"]:
+        if plain:  # its legs are spans of the step trace's record
+            timeline.start_steps()
         loss = step(model, torch.as_tensor(b[rank * half:(rank + 1) * half]))
         out["losses"].append(loss.item())
-        if PATHS[path][0] == "train_step":
-            out["d2h_bytes"].append(ps.last_bytes["d2h"])
-            out["pushed_bytes"].append(ps.last_bytes["pushed"])
-            out["split_s"].append(dict(ps.last_timings))
+        if plain:
+            legs = timeline.leg_seconds(timeline.stop_steps())
+            out["d2h_bytes"].append(legs.pop("d2h_bytes"))
+            out["pushed_bytes"].append(legs.pop("pushed_bytes"))
+            out["split_s"].append(legs)
         else:
             t = step.timings
             out["d2h_bytes"].append(sum(n for _, n in t["staged"]))

@@ -84,6 +84,12 @@ class LoopbackClient:
         self.wait(handle)
         return True
 
+    def dump_trace(self, path):
+        """The core's trace ring, drained: no core, no events."""
+        with open(path, "w") as f:
+            f.write('{"traceEvents": []}')
+        return 0
+
     def shutdown(self):
         pass
 

@@ -793,6 +793,12 @@ def test_dropped_hooks_free_the_model(monkeypatch, path):
     weight = weakref.ref(model.weight)
     del model, opt, holder
     gc.collect()
+    # the stager thread may still be returning from the window's last
+    # job, whose frame holds the state until it ends
+    deadline = time.monotonic() + 10
+    while weight() is not None and time.monotonic() < deadline:
+        time.sleep(0.01)
+        gc.collect()
     assert weight() is None
     for t in stagers:
         t.join(timeout=10)

@@ -137,3 +137,22 @@ def test_timeline_writes_the_combined_trace_in_ps_mode(tmp_path,
         events = json.load(f)["traceEvents"]
     assert sum(e.get("pid") == timeline._DCN_PID and "ts" in e
                for e in events) == 2
+    # the step trace's rows: the push_pull's legs on the host row, a row
+    # for the card (no marks on the CPU), on the core's timebase
+    rows = {e["pid"]: e["args"]["name"] for e in events
+            if e.get("name") == "process_name"}
+    assert timeline._HOST_PID in rows and timeline._CARD_PID in rows
+    host = [e for e in events if e.get("pid") == timeline._HOST_PID
+            and "ts" in e]
+    assert [e["name"] for e in host] == ["d2h", "core", "h2d"]
+    assert all(e["args"]["parent"] == "push_pull" for e in host)
+    core = [e["ts"] for e in events
+            if e.get("pid") == timeline._DCN_PID and "ts" in e]
+    prof = [e["ts"] for e in events if "ts" in e and e.get("pid") not in (
+        timeline._DCN_PID, timeline._HOST_PID, timeline._CARD_PID)]
+    for e in host:
+        # the legs ran inside the profiled window, before the core's
+        # synthetic spans (stamped 3 ms before the ring was drained)
+        assert min(prof) <= e["ts"] <= max(prof) + 1e6
+        assert e["ts"] + e["dur"] <= max(core) + 1e6
+        assert e["ts"] >= min(core) - 1e6
