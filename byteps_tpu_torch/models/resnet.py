@@ -13,7 +13,9 @@ torchvision transcription, it follows the flax module:
   0.1), eps 1e-5, statistics in f32 as E[x^2] - E[x]^2 clipped at 0, the
   biased variance into the running average, the input normalised in f32
   and the output cast to ``dtype``; the last norm of each block starts
-  with scale 0;
+  with scale 0. It runs through ``ops.batch_norm``: torch ops on the CPU,
+  the fused kernels on the card, with the ReLU that follows a norm inside
+  the norm (``relu=True``);
 - parameters in f32, convolutions in ``dtype`` (bf16 by default), the
   global mean pool in ``dtype`` over an f32 sum, an f32 head and f32
   logits.
@@ -34,9 +36,7 @@ from torch import nn
 
 from byteps_tpu_torch._device import resolve_device
 from byteps_tpu_torch.models.transformer import Dense, _flatten
-
-_BN_MOMENTUM = 0.9  # flax's convention: weight of the old running average
-_BN_EPS = 1e-5
+from byteps_tpu_torch.ops.batch_norm import batch_norm
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -99,33 +99,23 @@ class BatchNorm(nn.Module):
     channels of NCHW: parameters ``scale`` and ``bias``, running
     statistics ``mean`` and ``var`` (flax's ``batch_stats``), all f32.
     Train mode normalises by the batch's statistics and updates the
-    running ones in place; eval mode uses the running ones."""
+    running ones in place; eval mode uses them. With ``relu`` the ReLU
+    that follows the norm is applied to its f32 output before the cast
+    (the same values as a ReLU after it)."""
 
     def __init__(self, features: int, dtype: torch.dtype,
-                 scale_init: float = 1.0):
+                 scale_init: float = 1.0, relu: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.relu = relu
         self.scale = nn.Parameter(torch.full((features,), scale_init))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
-                              min=0.0)
-            with torch.no_grad():
-                self.mean.copy_(_BN_MOMENTUM * self.mean
-                                + (1 - _BN_MOMENTUM) * mean)
-                self.var.copy_(_BN_MOMENTUM * self.var
-                               + (1 - _BN_MOMENTUM) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + _BN_EPS) * self.scale
-        y = (xf - mean[:, None, None]) * mul[:, None, None]
-        return (y + self.bias[:, None, None]).to(self.dtype)
+        return batch_norm(x.to(self.dtype), self.scale, self.bias, self.mean,
+                          self.var, self.training, self.relu)
 
 
 class ResNetBlock(nn.Module):
@@ -137,7 +127,7 @@ class ResNetBlock(nn.Module):
                  dtype: torch.dtype, generator: torch.Generator):
         super().__init__()
         self.conv_0 = Conv(cin, filters, 3, stride, dtype, generator)
-        self.bn_0 = BatchNorm(filters, dtype)
+        self.bn_0 = BatchNorm(filters, dtype, relu=True)
         self.conv_1 = Conv(filters, filters, 3, 1, dtype, generator)
         self.bn_1 = BatchNorm(filters, dtype, scale_init=0.0)
         self.has_proj = stride != 1 or cin != filters
@@ -146,7 +136,7 @@ class ResNetBlock(nn.Module):
             self.norm_proj = BatchNorm(filters, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn_0(self.conv_0(x)))
+        y = self.bn_0(self.conv_0(x))
         y = self.bn_1(self.conv_1(y))
         if self.has_proj:
             x = self.norm_proj(self.conv_proj(x))
@@ -163,9 +153,9 @@ class BottleneckResNetBlock(nn.Module):
                  dtype: torch.dtype, generator: torch.Generator):
         super().__init__()
         self.conv_0 = Conv(cin, filters, 1, 1, dtype, generator)
-        self.bn_0 = BatchNorm(filters, dtype)
+        self.bn_0 = BatchNorm(filters, dtype, relu=True)
         self.conv_1 = Conv(filters, filters, 3, stride, dtype, generator)
-        self.bn_1 = BatchNorm(filters, dtype)
+        self.bn_1 = BatchNorm(filters, dtype, relu=True)
         self.conv_2 = Conv(filters, filters * 4, 1, 1, dtype, generator)
         self.bn_2 = BatchNorm(filters * 4, dtype, scale_init=0.0)
         self.has_proj = stride != 1 or cin != filters * 4
@@ -175,8 +165,8 @@ class BottleneckResNetBlock(nn.Module):
             self.norm_proj = BatchNorm(filters * 4, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn_0(self.conv_0(x)))
-        y = F.relu(self.bn_1(self.conv_1(y)))
+        y = self.bn_0(self.conv_0(x))
+        y = self.bn_1(self.conv_1(y))
         y = self.bn_2(self.conv_2(y))
         if self.has_proj:
             x = self.norm_proj(self.conv_proj(x))
@@ -203,7 +193,7 @@ class ResNet(nn.Module):
         self.dtype = dtype
         self.conv_init = Conv(3, num_filters, 7, 2, dtype, generator,
                               padding=3)
-        self.bn_init = BatchNorm(num_filters, dtype)
+        self.bn_init = BatchNorm(num_filters, dtype, relu=True)
         blocks, cin = [], num_filters
         for i, n in enumerate(stage_sizes):
             filters = num_filters * 2 ** i
@@ -218,7 +208,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.bn_init(self.conv_init(x))
         x, pad = _same(x, 3, 2, float("-inf"))
         x = F.max_pool2d(x, 3, 2, padding=pad)
         for block in self.blocks:

@@ -54,6 +54,10 @@ an idle stream completes as it is enqueued. Each gap is named by the
 innermost host span open at its middle. This is a lower bound of the
 card's idle time: it sees nothing inside the forward pass or the
 backward, where the program has no marks.
+
+A record may also carry counters: ``bn_launches``, the batch-norm kernel
+entries the step called (``ops.batch_norm``: a forward and a backward a
+norm of a training step).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@
 
 Phases, each of which raises on failure:
 
-1. build: the flash-attention kernels (nvcc, sm_90a) and the C++ PS core
-   (g++), both from this checkout's sources, in parallel, into
+1. build: the flash-attention and batch-norm kernels (nvcc, sm_90a) and
+   the C++ PS core (g++), all from this checkout's sources, in parallel, into
    build/byteps_tpu_torch/; the SASS of each instantiation of the
    tensor-core kernels (bf16/f16 and f32 forward, dQ, dK/dV; in f32 three
    TF32 products a product) must hold HGMMA (wgmma) instructions;
@@ -21,7 +21,10 @@ Phases, each of which raises on failure:
    each timed beside its plain version, PyTorch's
    scaled_dot_product_attention (in f32 its memory-efficient backend,
    pinned), and its bound (device time from CUDA graph replays, the
-   kernels and SDPA's forward and backward in turns over 5 windows);
+   kernels and SDPA's forward and backward in turns over 5 windows); then
+   the batch-norm kernels (see ``batch_norm_phase``) at each shape of
+   ResNet-50's 53 norms (batch 256, bf16), checked against the plain
+   version run in f32 and timed in turns with it, summed over the norms;
 3. collective mode: GPT2Small(attn_impl="flash") at full width trains a
    few steps of 8 x 512 tokens through init -> make_train_step with
    AdamW, then runs one evaluation forward under no_grad; the launch
@@ -47,7 +50,9 @@ Phases, each of which raises on failure:
    the f32 and the bf16 wire (one hook per parameter, 161 a step), and
    make_async_train_step against a fleet started with
    BYTEPS_ENABLE_ASYNC=1; losses and BatchNorm running averages held to
-   the collective path's, no flash kernel launched; then VGG-16 in
+   the collective path's, no flash kernel launched, every norm of every
+   step through the batch-norm kernels (a train forward and a backward
+   each, also as the step trace's ``bn_launches``); then VGG-16 in
    collective mode, 2 steps of batch 64;
 6. BERT-Large MLM (BertLarge(flash, bf16), seq 128, batch 32, bench.py's
    tokens and mask, AdamW(1e-4, weight decay 1e-4)): collective
@@ -204,6 +209,8 @@ def build_all():
     threads = [
         threading.Thread(target=run, args=(
             "flash_attention.cu", lambda: _cuda_lib.build("flash_attention"))),
+        threading.Thread(target=run, args=(
+            "batch_norm.cu", lambda: _cuda_lib.build("batch_norm"))),
         threading.Thread(target=run, args=(
             "libbyteps_core", lambda: core_build.build(verbose=False))),
     ]
@@ -699,6 +706,155 @@ def reference_phase():
         raise AssertionError("reference tolerances failed:\n"
                              + "\n".join(failures))
     return worst, cases
+
+
+# --- phase 2 (b): the batch-norm kernels at ResNet-50's norms ---------------
+
+def bn_bound(dtype, want, mag=None):
+    """Element-wise limit of |kernel - plain version in f32| for the
+    batch-norm kernels: 1e-5 of ``mag`` (the tensor's largest |want|
+    unless given; for a channel's sum, the sum of |term| behind it), which
+    covers two f32 evaluations that sum in another order, plus one bf16
+    ulp of ``want`` for a bf16 output (the kernel's own rounding), and at
+    least f32's least normal number, so that a channel whose terms are all
+    0 (a channel held at 0, or one the ReLU masks whole) has a limit."""
+    import torch
+    tiny = torch.finfo(torch.float32).tiny
+    want = want.double()
+    if mag is None:
+        mag = want.abs().max()
+    bound = 1e-5 * mag
+    if dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(tiny))) - 7)
+    return torch.clamp(torch.as_tensor(bound, dtype=torch.float64),
+                       min=tiny)
+
+
+def _resnet50_norms(batch):
+    """[(N, C, H, W, relu)] of ResNet-50's 53 norms at ``batch`` images of
+    IMAGE x IMAGE, in forward order: the inputs that forward hooks see in
+    a one-image forward on the card."""
+    import torch
+
+    from byteps_tpu_torch.models import ResNet50
+    from byteps_tpu_torch.models.resnet import BatchNorm
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0)).eval()
+    seen = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_hook(lambda mod, args, out: seen.append(
+                (batch, *args[0].shape[1:], mod.relu)))
+    with torch.no_grad():
+        model(torch.zeros(1, 3, IMAGE, IMAGE, device="cuda"))
+    return seen
+
+
+def batch_norm_phase():
+    """The batch-norm kernels (``ops.batch_norm``, bf16, train mode) at
+    each distinct shape of ResNet-50's 53 norms at batch IMAGE_BATCH:
+    forward and backward checked against the plain version run in f32
+    (``bn_bound``; dy 0 where |y| < 1e-3 of its largest, under the ReLU,
+    where the two sides' statistics may put y on either side of 0), then
+    timed in turns with the plain version (CUDA graphs, 5 windows). Each
+    time is summed over the norms of its shape, beside the byte bound
+    (x read once and y written once forward; x and dy read once and dx
+    written once backward; over HBM_BPS) and the traffic the kernels are
+    built for (x read twice forward; x and dy twice backward)."""
+    import torch
+
+    bn = importlib.import_module("byteps_tpu_torch.ops.batch_norm")
+    norms = _resnet50_norms(IMAGE_BATCH)
+    if len(norms) != 53:
+        raise AssertionError(f"ResNet-50 has {len(norms)} norms, not 53")
+    failures, shapes = [], {}
+    totals = collections.Counter()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for shape, count in sorted(collections.Counter(norms).items()):
+        n, c, h, w, relu = shape
+        x = torch.randn((n, c, h, w), generator=g, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        dy = torch.randn_like(x)
+        scale = torch.rand(c, generator=g, device="cuda") + 0.5
+        bias = 0.5 * torch.randn(c, generator=g, device="cuda")
+        mean, var = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        y, stats = bn._forward(x, scale, bias, mean.clone(), var.clone(),
+                               True, relu)
+        leaves = [x.float().requires_grad_(), scale.clone().requires_grad_(),
+                  bias.clone().requires_grad_()]
+        y_ref = bn._plain(*leaves, mean.clone(), var.clone(), True, relu)
+        if relu:  # masked_fill returns NCHW: back to the model's layout
+            yd = y_ref.detach()
+            edge = yd.abs() < 1e-3 * yd.abs().max()
+            dy = dy.masked_fill(edge, 0).contiguous(
+                memory_format=torch.channels_last)
+        want = torch.autograd.grad(y_ref, leaves, dy.float())
+        got = bn._backward(x, dy, scale, bias, stats[0], stats[1], stats[2],
+                           relu)
+        xf = leaves[0].detach()
+        xhat = (xf - stats[0][:, None, None]) * torch.rsqrt(
+            stats[1] + bn.EPS)[:, None, None]
+        d = dy.float() * (y_ref.detach() > 0) if relu else dy.float()
+        mags = (None, None, (d * xhat).abs().sum((0, 2, 3)),
+                d.abs().sum((0, 2, 3)))
+        ratios = {}
+        for what, a, b, mag in zip(("y", "dx", "dscale", "dbias"),
+                                   (y, *got), (y_ref.detach(), *want), mags):
+            dt = x.dtype if what in ("y", "dx") else torch.float32
+            ratios[what] = ((a.double() - b.double()).abs()
+                            / bn_bound(dt, b, mag)).max().item()
+            if not (bool(torch.isfinite(a).all()) and ratios[what] <= 1.0):
+                failures.append(f"{shape}/{what}: error/bound "
+                                f"{ratios[what]:.3f}")
+        del leaves, y_ref, want, got, xf, xhat, d
+
+        def fused_fwd():
+            return bn._forward(x, scale, bias, mean, var, True, relu)
+
+        def fused_bwd():
+            return bn._backward(x, dy, scale, bias, stats[0], stats[1],
+                                stats[2], relu)
+
+        def plain_fwd():
+            with torch.no_grad():
+                return bn._plain(x, scale, bias, mean, var, True, relu)
+        cap = torch.cuda.Stream()
+        cap.wait_stream(torch.cuda.current_stream())
+        pl = [x.detach().requires_grad_(), scale.detach().requires_grad_(),
+              bias.detach().requires_grad_()]
+        with torch.cuda.stream(cap):
+            y_p = bn._plain(*pl, mean.clone(), var.clone(), True, relu)
+
+        def plain_bwd():
+            torch.autograd.grad(y_p, pl, dy, retain_graph=True)
+        dev = _time_alternating({"fused_fwd": fused_fwd,
+                                 "fused_bwd": fused_bwd,
+                                 "plain_fwd": plain_fwd,
+                                 "plain_bwd": plain_bwd}, stream=cap)
+        nbytes = x.numel() * x.element_size()
+        row = {"norms": count, "relu": relu, "max_err_over_bound": ratios,
+               **{k: v[0] for k, v in dev.items()},
+               "bound_fwd": 2 * nbytes / HBM_BPS * 1e3,
+               "bound_bwd": 3 * nbytes / HBM_BPS * 1e3,
+               "traffic_fwd": 3 * nbytes / HBM_BPS * 1e3,
+               "traffic_bwd": 5 * nbytes / HBM_BPS * 1e3}
+        shapes[f"{n}x{c}x{h}x{w}{' relu' if relu else ''}"] = row
+        for k in ("fused_fwd", "fused_bwd", "plain_fwd", "plain_bwd",
+                  "bound_fwd", "bound_bwd", "traffic_fwd", "traffic_bwd"):
+            totals[k] += count * row[k]
+        log(f"batch norm {shape} x{count} (ms): " + json.dumps(row))
+        del x, dy, y, stats, y_p, pl
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("batch-norm kernels failed:\n"
+                             + "\n".join(failures))
+    totals = dict(totals)
+    for way in ("fwd", "bwd"):
+        totals[f"bound_share_{way}"] = (totals[f"bound_{way}"]
+                                        / totals[f"fused_{way}"])
+    log("batch norm, ResNet-50's 53 norms summed (ms):", json.dumps(totals))
+    return {"shapes": shapes, "summed_ms": totals}
 
 
 # --- phases 3 and 4: the main path -------------------------------------------
@@ -1433,19 +1589,22 @@ def _resnet_paths(labels, batch, keep=False):
 
     from byteps_tpu_torch.utils import timeline
     fa = importlib.import_module("byteps_tpu_torch.ops.flash_attention")
+    bn = importlib.import_module("byteps_tpu_torch.ops.batch_norm")
 
     paths = {}
     for label in labels:
         model = _resnet()
         paths[label] = (model, _resnet_step(label, model))
     rec = {label: {"losses": [], "step_ms": [], "staging": [], "steps": [],
-                   "launches": 0} for label in labels}
+                   "launches": 0, "bn_launches": collections.Counter(),
+                   "bn_traced": []} for label in labels}
     torch.cuda.synchronize()
     for r in range(STEPS):
         for label in labels[r % len(labels):] + labels[:r % len(labels)]:
             model, run = paths[label]
             out = rec[label]
             fa.reset_launches()
+            bn.reset_launches()
             if label in ("ps", "async"):
                 timeline.start_steps()
             t0 = time.perf_counter()
@@ -1453,10 +1612,13 @@ def _resnet_paths(labels, batch, keep=False):
             torch.cuda.synchronize()
             out["step_ms"].append((time.perf_counter() - t0) * 1e3)
             out["launches"] += sum(fa.LAUNCHES.values())
+            out["bn_launches"].update(bn.LAUNCHES)
             out["losses"].append(loss.item())
             if label in ("ps", "async"):
-                out["staging"].append(
-                    timeline.leg_seconds(timeline.stop_steps()))
+                traced = timeline.stop_steps()
+                out["staging"].append(timeline.leg_seconds(traced))
+                out["bn_traced"].append(sum(r.get("bn_launches", 0)
+                                            for r in traced["records"]))
             elif label.startswith("dopt"):
                 out["steps"].append(_overlap_record(run.timings))
     for label, (model, run) in paths.items():
@@ -1490,9 +1652,20 @@ def _resnet_summary(label, out, n_params):
     if out["launches"]:
         raise AssertionError(f"resnet50 {label}: {out['launches']} flash "
                              f"kernel launches, expected none")
+    # every norm of every step through the kernels: a train forward and a
+    # backward each; the step trace's records count the same
+    bn_want = {"train": 53 * STEPS, "eval": 0, "backward": 53 * STEPS}
+    if (dict(out["bn_launches"]) != bn_want
+            or any(n != 2 * 53 for n in out["bn_traced"])):
+        raise AssertionError(f"resnet50 {label}: batch-norm kernel entries "
+                             f"{dict(out['bn_launches'])}, traced "
+                             f"{out['bn_traced']}, expected {bn_want} and "
+                             f"{2 * 53} a traced step")
     step = _median(out["step_ms"])
     got = {"losses": out["losses"], "step_ms": out["step_ms"],
-           "median_step_ms": step, "images_per_s": IMAGE_BATCH / step * 1e3}
+           "median_step_ms": step, "images_per_s": IMAGE_BATCH / step * 1e3,
+           "bn_launches": dict(out["bn_launches"]),
+           "bn_launches_traced": out["bn_traced"]}
     if out["staging"]:
         got["staging_ms"] = {k: _median([t[k] * 1e3 for t in out["staging"]])
                              for k in ("d2h_s", "core_s", "h2d_s")}
@@ -4181,6 +4354,7 @@ def main() -> int:
     build_s = build_all()
     sass = tensor_core_sass()
     errors, timing = kernel_phase()
+    norms = batch_norm_phase()
     reference, reference_cases = reference_phase()
     coll_losses, coll_times, coll_launches, profile = collective_phase()
     # phase 9 runs here, while this process holds little of the card: its
@@ -4249,6 +4423,7 @@ def main() -> int:
         "kernel_errors": errors,
         "kernel_readings": timing["readings"],
         "kernel_reference_ratios": reference_cases,
+        "batch_norm": norms,
     }
     log("PS paths, median of steps 2-4 (ms; plain_alone: the plain step "
         "before the others, plain: in turns with them; their D2H / core / "
@@ -4314,6 +4489,14 @@ def main() -> int:
             "shapes": {case: {"max_abs_err": errors[name][case],
                               **timing[case][name]}
                        for case in TIMED if case != "gpt2"}})
+    kernels.append({
+        "name": "batch_norm (bn_stats_kernel, bn_finalize_kernel, "
+                "bn_apply_kernel | bn_bwd_reduce_kernel, "
+                "bn_bwd_finalize_kernel, bn_bwd_dx_kernel)",
+        "route": "cuda", "source": "byteps_tpu_torch/csrc/batch_norm.cu",
+        "replaces": None,
+        "launches": images["resnet50"]["collective"]["bn_launches"],
+        **norms["summed_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

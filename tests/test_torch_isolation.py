@@ -30,7 +30,8 @@ def test_port_imports_no_jax_and_nothing_of_byteps_tpu():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == [], got["bad"]
-    for mod in ("byteps_tpu_torch.ops.flash_attention", "byteps_tpu_torch.ps",
+    for mod in ("byteps_tpu_torch.ops.flash_attention",
+                "byteps_tpu_torch.ops.batch_norm", "byteps_tpu_torch.ps",
                 "byteps_tpu_torch.training", "byteps_tpu_torch.overlap",
                 "byteps_tpu_torch.bucketed",
                 "byteps_tpu_torch.local_stage", "byteps_tpu_torch.core.ffi",
