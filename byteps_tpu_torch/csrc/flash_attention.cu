@@ -148,8 +148,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2], floa
 
 // Thread layout of the wgmma fragments: warp w of the warpgroup holds tile
 // rows 16w + lane/4 and 16w + lane/4 + 8; element [i*4 + r*2 + e] of an
-// m64nN accumulator is row (r), column 8i + 2*(lane%4) + e.
-template <typename T, int D, bool LSE>
+// m64nN accumulator is row (r), column 8i + 2*(lane%4) + e. D is the head
+// dim of q and k, DV that of v and o (DV = D but for latent attention's
+// 192 / 128).
+template <typename T, int D, int DV, bool LSE>
 __global__ void __launch_bounds__(WG)
 fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -157,12 +159,13 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                     float* __restrict__ lse, int H, int Sq, int Sk, float scale, int causal,
                     int window) {
   using G = Tile<D>;
+  using GV = Tile<DV>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + G::BYTES;            // stage st at sK + st * G::BYTES
-  const uint32_t sV = sK + STAGES * G::BYTES;
-  const uint32_t bar_q = sV + STAGES * G::BYTES;
+  const uint32_t sV = sK + STAGES * G::BYTES;   // stage st at sV + st * GV::BYTES
+  const uint32_t bar_q = sV + STAGES * GV::BYTES;
   const uint32_t bar_k = bar_q + 8;             // stage st at bar_k + 8 * st
   const uint32_t bar_v = bar_k + 8 * STAGES;
 
@@ -193,10 +196,10 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int p = 0; p < D / G::DP; ++p)
       tma_load_4d(sK + st * G::BYTES + p * G::PANEL, &tk, bar_k + 8 * st, p * G::DP, h, kt * BK,
                   b);
-    mbar_expect_tx(bar_v + 8 * st, G::BYTES);
-    for (int p = 0; p < D / G::DP; ++p)
-      tma_load_4d(sV + st * G::BYTES + p * G::PANEL, &tv, bar_v + 8 * st, p * G::DP, h, kt * BK,
-                  b);
+    mbar_expect_tx(bar_v + 8 * st, GV::BYTES);
+    for (int p = 0; p < DV / GV::DP; ++p)
+      tma_load_4d(sV + st * GV::BYTES + p * GV::PANEL, &tv, bar_v + 8 * st, p * GV::DP, h,
+                  kt * BK, b);
   };
   if (tid == 0 && kt_lo < kt_hi) {
     mbar_expect_tx(bar_q, G::BYTES);
@@ -205,9 +208,9 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     load_kv(kt_lo, 0);
   }
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[D / 2];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   const int qr = q0 + warp * 16 + (lane >> 2);  // query position of this thread's row 0
   const int c0 = 2 * (lane & 3);                // this thread's first column in 8
   const float scale_log2 = scale * kLog2e;
@@ -259,7 +262,7 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       softmax_tile<true>(s, m, l, corr, lo, hi, scale_log2);
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
     // P rounded to T (p.astype(v.dtype)) as the A fragment of P V: keys
     // 16j .. 16j+15 are accumulator chunks 2j and 2j+1.
@@ -276,9 +279,9 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)  // 16 keys a step
-      WgmmaRS<T, D>::run(acc, pa + 4 * j,
-                         smem_desc(sV + st * G::BYTES + j * 16 * G::ROW, G::PANEL, 8 * G::ROW,
-                                   G::SWZ));
+      WgmmaRS<T, DV>::run(acc, pa + 4 * j,
+                          smem_desc(sV + st * GV::BYTES + j * 16 * GV::ROW, GV::PANEL,
+                                    8 * GV::ROW, GV::SWZ));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -291,9 +294,9 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int qp = qr + 8 * r;
     if (qp >= Sq) continue;
     const float safe_l = l[r] == 0.f ? 1.f : l[r];
-    T* orow = o + ((size_t)(b * Sq + qp) * H + h) * D + c0;
+    T* orow = o + ((size_t)(b * Sq + qp) * H + h) * DV + c0;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<uint32_t*>(orow + 8 * i) =
           pack2<T>(acc[i * 4 + r * 2] / safe_l, acc[i * 4 + r * 2 + 1] / safe_l);
     if (LSE && (lane & 3) == 0)
@@ -408,7 +411,7 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t&
 
 // dQ of one 64-row q tile, walking its live K tiles (replaces
 // _fa_bwd_dq_kernel for bf16/f16; design in the note above).
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(WG)
 fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -416,14 +419,15 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                        const float* __restrict__ dvec, T* __restrict__ dq, int H, int Sq, int Sk,
                        float scale, int causal, int window) {
-  using G = Tile<D>;
+  using G = Tile<D>;    // Q, K
+  using GV = Tile<DV>;  // dO, V
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sDO = sQ + G::BYTES;
-  const uint32_t sK = sDO + G::BYTES;           // stage st at sK + st * G::BYTES
-  const uint32_t sV = sK + STAGES * G::BYTES;
-  const uint32_t bar_q = sV + STAGES * G::BYTES;  // Q and dO
+  const uint32_t sK = sDO + GV::BYTES;          // stage st at sK + st * G::BYTES
+  const uint32_t sV = sK + STAGES * G::BYTES;   // stage st at sV + st * GV::BYTES
+  const uint32_t bar_q = sV + STAGES * GV::BYTES;  // Q and dO
   const uint32_t bar_k = bar_q + 8;             // stage st at bar_k + 8 * st
   const uint32_t bar_v = bar_k + 8 * STAGES;
 
@@ -454,17 +458,17 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int p = 0; p < D / G::DP; ++p)
       tma_load_4d(sK + st * G::BYTES + p * G::PANEL, &tk, bar_k + 8 * st, p * G::DP, h, kt * BK,
                   b);
-    mbar_expect_tx(bar_v + 8 * st, G::BYTES);
-    for (int p = 0; p < D / G::DP; ++p)
-      tma_load_4d(sV + st * G::BYTES + p * G::PANEL, &tv, bar_v + 8 * st, p * G::DP, h, kt * BK,
-                  b);
+    mbar_expect_tx(bar_v + 8 * st, GV::BYTES);
+    for (int p = 0; p < DV / GV::DP; ++p)
+      tma_load_4d(sV + st * GV::BYTES + p * GV::PANEL, &tv, bar_v + 8 * st, p * GV::DP, h,
+                  kt * BK, b);
   };
   if (tid == 0 && kt_lo < kt_hi) {
-    mbar_expect_tx(bar_q, 2 * G::BYTES);
-    for (int p = 0; p < D / G::DP; ++p) {
+    mbar_expect_tx(bar_q, G::BYTES + GV::BYTES);
+    for (int p = 0; p < D / G::DP; ++p)
       tma_load_4d(sQ + p * G::PANEL, &tq, bar_q, p * G::DP, h, q0, b);
-      tma_load_4d(sDO + p * G::PANEL, &tdo, bar_q, p * G::DP, h, q0, b);
-    }
+    for (int p = 0; p < DV / GV::DP; ++p)
+      tma_load_4d(sDO + p * GV::PANEL, &tdo, bar_q, p * GV::DP, h, q0, b);
     load_kv(kt_lo, 0);
   }
 
@@ -506,9 +510,10 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           j > 0);
     mbar_wait(bar_v + 8 * st, parity);
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)  // dP = dO V^T
-      WgmmaSS<T, 64>::run(dp, smem_desc(sDO + G::kstep(j), 16, 8 * G::ROW, G::SWZ),
-                          smem_desc(sV + st * G::BYTES + G::kstep(j), 16, 8 * G::ROW, G::SWZ),
+    for (int j = 0; j < DV / 16; ++j)  // dP = dO V^T
+      WgmmaSS<T, 64>::run(dp, smem_desc(sDO + GV::kstep(j), 16, 8 * GV::ROW, GV::SWZ),
+                          smem_desc(sV + st * GV::BYTES + GV::kstep(j), 16, 8 * GV::ROW,
+                                    GV::SWZ),
                           j > 0);
     wgmma_commit();
     wgmma_wait_all();
@@ -565,14 +570,15 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// Queries per tile of the dK/dV kernel: 32 at d 128 keeps its registers
-// (two [64 x 128] accumulators) clear of spills.
-template <int D> __host__ __device__ constexpr int dkv_bn() { return D == 128 ? 32 : 64; }
+// Queries per tile of the dK/dV kernel: 32 where dK and dV have 128
+// columns or more keeps its registers (two accumulators of [64 x 128], or
+// [64 x 192] and [64 x 128] for latent attention) clear of spills.
+template <int D> __host__ __device__ constexpr int dkv_bn() { return D >= 128 ? 32 : 64; }
 
 // dK and dV of one 64-row K tile, walking its live Q tiles with transposed
 // score tiles (replaces _fa_bwd_dkv_kernel for bf16/f16; design in the
 // note above). dV keeps f32 p: two products, P_hi^T dO + P_lo^T dO.
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(WG)
 fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -581,16 +587,18 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv,
                         int H, int Sq, int Sk, float scale, int causal, int window) {
   constexpr int BN = dkv_bn<D>();
-  using GK = Tile<D>;      // K, V: 64 key rows
-  using GQ = Tile<D, BN>;  // Q, dO: BN query rows
+  using GK = Tile<D>;        // K: 64 key rows
+  using GV = Tile<DV>;       // V: 64 key rows
+  using GQ = Tile<D, BN>;    // Q: BN query rows
+  using GO = Tile<DV, BN>;   // dO: BN query rows
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   const uint32_t sK = (base + 1023u) & ~1023u;
   const uint32_t sV = sK + GK::BYTES;
-  const uint32_t sQ = sV + GK::BYTES;               // stage st at sQ + st * GQ::BYTES
-  const uint32_t sDO = sQ + STAGES * GQ::BYTES;
-  const uint32_t sRows = sDO + STAGES * GQ::BYTES;  // f32 [STAGES][lse2, D][BN]
+  const uint32_t sQ = sV + GV::BYTES;               // stage st at sQ + st * GQ::BYTES
+  const uint32_t sDO = sQ + STAGES * GQ::BYTES;     // stage st at sDO + st * GO::BYTES
+  const uint32_t sRows = sDO + STAGES * GO::BYTES;  // f32 [STAGES][lse2, D][BN]
   const uint32_t bar_kv = sRows + STAGES * 2 * BN * 4;
   const uint32_t bar_q = bar_kv + 8;                // stage st at bar_q + 8 * st
   const uint32_t bar_do = bar_q + 8 * STAGES;
@@ -636,26 +644,28 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int p = 0; p < D / GQ::DP; ++p)
       tma_load_4d(sQ + st * GQ::BYTES + p * GQ::PANEL, &tq, bar_q + 8 * st, p * GQ::DP, h,
                   qt * BN, b);
-    mbar_expect_tx(bar_do + 8 * st, GQ::BYTES);
-    for (int p = 0; p < D / GQ::DP; ++p)
-      tma_load_4d(sDO + st * GQ::BYTES + p * GQ::PANEL, &tdo, bar_do + 8 * st, p * GQ::DP, h,
+    mbar_expect_tx(bar_do + 8 * st, GO::BYTES);
+    for (int p = 0; p < DV / GO::DP; ++p)
+      tma_load_4d(sDO + st * GO::BYTES + p * GO::PANEL, &tdo, bar_do + 8 * st, p * GO::DP, h,
                   qt * BN, b);
   };
   if (tid == 0 && qt_lo < qt_hi) {
-    mbar_expect_tx(bar_kv, 2 * GK::BYTES);
-    for (int p = 0; p < D / GK::DP; ++p) {
+    mbar_expect_tx(bar_kv, GK::BYTES + GV::BYTES);
+    for (int p = 0; p < D / GK::DP; ++p)
       tma_load_4d(sK + p * GK::PANEL, &tk, bar_kv, p * GK::DP, h, k0, b);
-      tma_load_4d(sV + p * GK::PANEL, &tv, bar_kv, p * GK::DP, h, k0, b);
-    }
+    for (int p = 0; p < DV / GV::DP; ++p)
+      tma_load_4d(sV + p * GV::PANEL, &tv, bar_kv, p * GV::DP, h, k0, b);
     load_qdo(qt_lo, 0);
   }
 
   const int kr = k0 + warp * 16 + (lane >> 2);  // key position of this thread's row 0
   const int c0 = 2 * (lane & 3);                // this thread's first column in 8
   const float scale_log2 = scale * kLog2e;
-  float acc_k[D / 2], acc_v[D / 2];
+  float acc_k[D / 2], acc_v[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc_v[i] = 0.f;
   int lo[2], hi[2];  // live columns of a masked tile
 
   if (qt_lo < qt_hi) mbar_wait(bar_kv, 0);
@@ -682,10 +692,10 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           j > 0);
     mbar_wait(bar_do + 8 * st, parity);
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)  // dP^T = V dO^T
-      WgmmaSS<T, BN>::run(dp, smem_desc(sV + GK::kstep(j), 16, 8 * GK::ROW, GK::SWZ),
-                          smem_desc(sDO + st * GQ::BYTES + GQ::kstep(j), 16, 8 * GQ::ROW,
-                                    GQ::SWZ),
+    for (int j = 0; j < DV / 16; ++j)  // dP^T = V dO^T
+      WgmmaSS<T, BN>::run(dp, smem_desc(sV + GV::kstep(j), 16, 8 * GV::ROW, GV::SWZ),
+                          smem_desc(sDO + st * GO::BYTES + GO::kstep(j), 16, 8 * GO::ROW,
+                                    GO::SWZ),
                           j > 0);
     wgmma_commit();
     wgmma_wait_all();
@@ -731,10 +741,10 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j) {  // 16 queries a step
-      const uint64_t bdo = smem_desc(sDO + st * GQ::BYTES + j * 16 * GQ::ROW, GQ::PANEL,
-                                     8 * GQ::ROW, GQ::SWZ);
-      WgmmaRS<T, D>::run(acc_v, ph + 4 * j, bdo);  // dV += P_hi^T dO
-      WgmmaRS<T, D>::run(acc_v, pl + 4 * j, bdo);  // dV += P_lo^T dO
+      const uint64_t bdo = smem_desc(sDO + st * GO::BYTES + j * 16 * GO::ROW, GO::PANEL,
+                                     8 * GO::ROW, GO::SWZ);
+      WgmmaRS<T, DV>::run(acc_v, ph + 4 * j, bdo);  // dV += P_hi^T dO
+      WgmmaRS<T, DV>::run(acc_v, pl + 4 * j, bdo);  // dV += P_lo^T dO
       WgmmaRS<T, D>::run(acc_k, da + 4 * j,        // dK += dS^T Q
                          smem_desc(sQ + st * GQ::BYTES + j * 16 * GQ::ROW, GQ::PANEL,
                                    8 * GQ::ROW, GQ::SWZ));
@@ -754,14 +764,15 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int kp = kr + 8 * r;
     if (kp >= Sk) continue;
-    const size_t off = ((size_t)(b * Sk + kp) * H + h) * D + c0;
+    const size_t row = (size_t)(b * Sk + kp) * H + h;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(dk + row * D + c0 + 8 * i) =
           pack2<T>(acc_k[i * 4 + r * 2], acc_k[i * 4 + r * 2 + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i)
+      *reinterpret_cast<uint32_t*>(dv + row * DV + c0 + 8 * i) =
           pack2<T>(acc_v[i * 4 + r * 2], acc_v[i * 4 + r * 2 + 1]);
-    }
   }
 }
 
@@ -1586,7 +1597,7 @@ struct Prepared {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                 int Sq, int Sk, float scale, int causal, int window, cudaStream_t stream) {
   static Prepared with_lse, without_lse;
@@ -1618,24 +1629,27 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
     }
   } else {
     using G = Tile<D>;
+    using GV = Tile<DV>;
     // Q + the K/V ring, 1024 bytes to align them to the swizzle atom, the
     // mbarriers
-    constexpr size_t smem = (1 + 2 * STAGES) * G::BYTES + 1024 + 8 * (1 + 2 * STAGES);
+    constexpr size_t smem =
+        (1 + STAGES) * G::BYTES + STAGES * GV::BYTES + 1024 + 8 * (1 + 2 * STAGES);
     const CUtensorMapDataType dt = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     if ((err = hopper::encode_bshd(&tq, q, dt, B, Sq, H, D, G::DP, BQ)) != cudaSuccess ||
         (err = hopper::encode_bshd(&tk, k, dt, B, Sk, H, D, G::DP, BK)) != cudaSuccess ||
-        (err = hopper::encode_bshd(&tv, v, dt, B, Sk, H, D, G::DP, BK)) != cudaSuccess)
+        (err = hopper::encode_bshd(&tv, v, dt, B, Sk, H, DV, GV::DP, BK)) != cudaSuccess)
       return err;
     if (lse != nullptr) {
-      if ((err = with_lse(fa_fwd_wgmma_kernel<T, D, true>, smem)) != cudaSuccess) return err;
-      fa_fwd_wgmma_kernel<T, D, true><<<grid, WG, smem, stream>>>(
+      if ((err = with_lse(fa_fwd_wgmma_kernel<T, D, DV, true>, smem)) != cudaSuccess)
+        return err;
+      fa_fwd_wgmma_kernel<T, D, DV, true><<<grid, WG, smem, stream>>>(
           tq, tk, tv, (T*)o, (float*)lse, H, Sq, Sk, scale, causal, window);
     } else {
-      if ((err = without_lse(fa_fwd_wgmma_kernel<T, D, false>, smem)) != cudaSuccess)
+      if ((err = without_lse(fa_fwd_wgmma_kernel<T, D, DV, false>, smem)) != cudaSuccess)
         return err;
-      fa_fwd_wgmma_kernel<T, D, false><<<grid, WG, smem, stream>>>(
+      fa_fwd_wgmma_kernel<T, D, DV, false><<<grid, WG, smem, stream>>>(
           tq, tk, tv, (T*)o, nullptr, H, Sq, Sk, scale, causal, window);
     }
   }
@@ -1644,13 +1658,14 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 
 // Tensor maps of q and dO (boxes of q_rows positions) and of k and v (boxes
 // of k_rows positions) for the tensor-core backward, in panels of the
-// tiles' width.
-template <typename T, int D>
+// tiles' width; q and k have head dim D, v and dO DV.
+template <typename T, int D, int DV>
 cudaError_t encode_qkvdo(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
                          const void* dout, int B, int H, int Sq, int Sk, int q_rows,
                          int k_rows) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int DP = F32 ? F32Tile<BK, D>::PC : Tile<D>::DP;
+  constexpr int DPV = F32 ? F32Tile<BK, DV>::PC : Tile<DV>::DP;
   const CUtensorMapDataType dt = F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                  : std::is_same<T, __half>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
@@ -1658,13 +1673,13 @@ cudaError_t encode_qkvdo(CUtensorMap (&maps)[4], const void* q, const void* k, c
   cudaError_t err;
   if ((err = hopper::encode_bshd(&maps[0], q, dt, B, Sq, H, D, DP, q_rows)) != cudaSuccess ||
       (err = hopper::encode_bshd(&maps[1], k, dt, B, Sk, H, D, DP, k_rows)) != cudaSuccess ||
-      (err = hopper::encode_bshd(&maps[2], v, dt, B, Sk, H, D, DP, k_rows)) != cudaSuccess ||
-      (err = hopper::encode_bshd(&maps[3], dout, dt, B, Sq, H, D, DP, q_rows)) != cudaSuccess)
+      (err = hopper::encode_bshd(&maps[2], v, dt, B, Sk, H, DV, DPV, k_rows)) != cudaSuccess ||
+      (err = hopper::encode_bshd(&maps[3], dout, dt, B, Sq, H, DV, DPV, q_rows)) != cudaSuccess)
     return err;
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* dvec, void* dq, int B, int H, int Sq, int Sk,
                    float scale, int causal, int window, cudaStream_t stream) {
@@ -1676,7 +1691,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   if constexpr (std::is_same<T, float>::value) {
     constexpr int BKQ = f32_dq_bk<D>();
-    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BQ, BKQ)) != cudaSuccess)
+    if ((err = encode_qkvdo<T, D, DV>(m, q, k, v, dout, B, H, Sq, Sk, BQ, BKQ)) != cudaSuccess)
       return err;
     // Q and dO (and their lo without f32_dq_reg_lo), the K/V ring, K's and
     // V's lo, K^T's hi and lo, 1024 bytes of alignment, the mbarriers
@@ -1688,20 +1703,20 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout
         m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (float*)dq, H, Sq, Sk,
         scale, causal, window);
   } else {
-    using G = Tile<D>;
-    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BQ, BK)) != cudaSuccess)
+    if ((err = encode_qkvdo<T, D, DV>(m, q, k, v, dout, B, H, Sq, Sk, BQ, BK)) != cudaSuccess)
       return err;
     // Q, dO + the K/V ring, 1024 bytes of alignment, the mbarriers
-    constexpr size_t smem = (2 + 2 * STAGES) * G::BYTES + 1024 + 8 * (1 + 2 * STAGES);
-    if ((err = prepared(fa_bwd_dq_wgmma_kernel<T, D>, smem)) != cudaSuccess) return err;
-    fa_bwd_dq_wgmma_kernel<T, D><<<grid, WG, smem, stream>>>(
+    constexpr size_t smem = (1 + STAGES) * (Tile<D>::BYTES + Tile<DV>::BYTES) + 1024 +
+                            8 * (1 + 2 * STAGES);
+    if ((err = prepared(fa_bwd_dq_wgmma_kernel<T, D, DV>, smem)) != cudaSuccess) return err;
+    fa_bwd_dq_wgmma_kernel<T, D, DV><<<grid, WG, smem, stream>>>(
         m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (T*)dq, H, Sq, Sk, scale,
         causal, window);
   }
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* dvec, void* dk, void* dv, int B, int H, int Sq,
                     int Sk, float scale, int causal, int window, cudaStream_t stream) {
@@ -1713,7 +1728,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   const dim3 grid(B * H, (Sk + BK - 1) / BK);
   if constexpr (std::is_same<T, float>::value) {
     constexpr int BN = f32_dkv_bn<D>();
-    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN, BK)) != cudaSuccess)
+    if ((err = encode_qkvdo<T, D, DV>(m, q, k, v, dout, B, H, Sq, Sk, BN, BK)) != cudaSuccess)
       return err;
     // K, V and their lo, the Q/dO ring, their lo, their transposes' hi and
     // lo, the ring's lse/D rows, 1024 bytes of alignment, the mbarriers
@@ -1726,14 +1741,15 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
         Sq, Sk, scale, causal, window);
   } else {
     constexpr int BN = dkv_bn<D>();
-    if ((err = encode_qkvdo<T, D>(m, q, k, v, dout, B, H, Sq, Sk, BN, BK)) != cudaSuccess)
+    if ((err = encode_qkvdo<T, D, DV>(m, q, k, v, dout, B, H, Sq, Sk, BN, BK)) != cudaSuccess)
       return err;
     // K, V + the Q/dO ring + its lse/D rows, 1024 bytes of alignment, the
     // mbarriers
-    constexpr size_t smem = 2 * Tile<D>::BYTES + 2 * STAGES * Tile<D, BN>::BYTES +
+    constexpr size_t smem = Tile<D>::BYTES + Tile<DV>::BYTES +
+                            STAGES * (Tile<D, BN>::BYTES + Tile<DV, BN>::BYTES) +
                             STAGES * 2 * BN * sizeof(float) + 1024 + 8 * (1 + 2 * STAGES);
-    if ((err = prepared(fa_bwd_dkv_wgmma_kernel<T, D>, smem)) != cudaSuccess) return err;
-    fa_bwd_dkv_wgmma_kernel<T, D><<<grid, WG, smem, stream>>>(
+    if ((err = prepared(fa_bwd_dkv_wgmma_kernel<T, D, DV>, smem)) != cudaSuccess) return err;
+    fa_bwd_dkv_wgmma_kernel<T, D, DV><<<grid, WG, smem, stream>>>(
         m[0], m[1], m[2], m[3], (const float*)lse, (const float*)dvec, (T*)dk, (T*)dv, H, Sq, Sk,
         scale, causal, window);
   }
@@ -1742,23 +1758,32 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 float16. head_dim: 16, 32, 64, 128.
-// Every entry point returns the cudaError_t of its launch (0 on success);
-// an unsupported dtype or head_dim returns cudaErrorInvalidValue.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16. Head dims (D of q and k,
+// Dv of v): 16, 32, 64 and 128 with Dv = D in every dtype, and D 192 with
+// Dv 128 (latent attention) in bfloat16 and float16. Every entry point
+// returns the cudaError_t of its launch (0 on success); an unsupported
+// dtype or head dim returns cudaErrorInvalidValue.
 #define BTT_DISPATCH(FN, ...)                                                   \
+  if (Dv != D) {                                                                \
+    if (D == 192 && Dv == 128 && dtype == 1)                                    \
+      return (int)FN<__nv_bfloat16, 192, 128>(__VA_ARGS__);                    \
+    if (D == 192 && Dv == 128 && dtype == 2)                                    \
+      return (int)FN<__half, 192, 128>(__VA_ARGS__);                           \
+    return (int)cudaErrorInvalidValue;                                          \
+  }                                                                             \
   switch (dtype * 1000 + D) {                                                   \
-    case 16: return (int)FN<float, 16>(__VA_ARGS__);                          \
-    case 32: return (int)FN<float, 32>(__VA_ARGS__);                          \
-    case 64: return (int)FN<float, 64>(__VA_ARGS__);                          \
-    case 128: return (int)FN<float, 128>(__VA_ARGS__);                        \
-    case 1016: return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__);                \
-    case 1032: return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);                \
-    case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);                \
-    case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);               \
-    case 2016: return (int)FN<__half, 16>(__VA_ARGS__);                       \
-    case 2032: return (int)FN<__half, 32>(__VA_ARGS__);                       \
-    case 2064: return (int)FN<__half, 64>(__VA_ARGS__);                       \
-    case 2128: return (int)FN<__half, 128>(__VA_ARGS__);                      \
+    case 16: return (int)FN<float, 16, 16>(__VA_ARGS__);                      \
+    case 32: return (int)FN<float, 32, 32>(__VA_ARGS__);                      \
+    case 64: return (int)FN<float, 64, 64>(__VA_ARGS__);                      \
+    case 128: return (int)FN<float, 128, 128>(__VA_ARGS__);                   \
+    case 1016: return (int)FN<__nv_bfloat16, 16, 16>(__VA_ARGS__);            \
+    case 1032: return (int)FN<__nv_bfloat16, 32, 32>(__VA_ARGS__);            \
+    case 1064: return (int)FN<__nv_bfloat16, 64, 64>(__VA_ARGS__);            \
+    case 1128: return (int)FN<__nv_bfloat16, 128, 128>(__VA_ARGS__);          \
+    case 2016: return (int)FN<__half, 16, 16>(__VA_ARGS__);                   \
+    case 2032: return (int)FN<__half, 32, 32>(__VA_ARGS__);                   \
+    case 2064: return (int)FN<__half, 64, 64>(__VA_ARGS__);                   \
+    case 2128: return (int)FN<__half, 128, 128>(__VA_ARGS__);                 \
     default: return (int)cudaErrorInvalidValue;                               \
   }
 
@@ -1766,20 +1791,22 @@ extern "C" {
 
 // lse == NULL launches the forward without the logsumexp output.
 int btt_fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B,
-               int H, int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
+               int H, int Sq, int Sk, int D, int Dv, float scale, int causal, int window,
+               void* stream) {
   BTT_DISPATCH(fwd, q, k, v, o, lse, B, H, Sq, Sk, scale, causal, window, (cudaStream_t)stream);
 }
 
 int btt_fa_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                   const void* dvec, void* dq, int dtype, int B, int H, int Sq, int Sk, int D,
-                  float scale, int causal, int window, void* stream) {
+                  int Dv, float scale, int causal, int window, void* stream) {
   BTT_DISPATCH(bwd_dq, q, k, v, dout, lse, dvec, dq, B, H, Sq, Sk, scale, causal, window,
                (cudaStream_t)stream);
 }
 
 int btt_fa_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* dvec, void* dk, void* dv, int dtype, int B, int H,
-                   int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
+                   int Sq, int Sk, int D, int Dv, float scale, int causal, int window,
+                   void* stream) {
   BTT_DISPATCH(bwd_dkv, q, k, v, dout, lse, dvec, dk, dv, B, H, Sq, Sk, scale, causal, window,
                (cudaStream_t)stream);
 }

@@ -154,6 +154,9 @@ template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t x) {
 #define BTT_OUT64 BTT_D8(0), BTT_D8(8), BTT_D8(16), BTT_D8(24)
 #define BTT_OUT128 \
   BTT_D8(0), BTT_D8(8), BTT_D8(16), BTT_D8(24), BTT_D8(32), BTT_D8(40), BTT_D8(48), BTT_D8(56)
+#define BTT_OUT192                                                                          \
+  BTT_D8(0), BTT_D8(8), BTT_D8(16), BTT_D8(24), BTT_D8(32), BTT_D8(40), BTT_D8(48), BTT_D8(56), \
+      BTT_D8(64), BTT_D8(72), BTT_D8(80), BTT_D8(88)
 #define BTT_ACC16 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define BTT_ACC32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define BTT_ACC64                                                                             \
@@ -164,6 +167,13 @@ template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t x) {
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
   "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define BTT_ACC192                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "   \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "   \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "   \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95}"
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], both operands in shared memory,
 // both K-major. `accumulate` 0 overwrites D.
@@ -202,6 +212,7 @@ template <typename T, int N> struct WgmmaRS;
     ", " DB ", p, 1, 1, 1;\n}\n"
 
 #define BTT_WGMMA_BOTH(TYPE, TS)                                                               \
+  BTT_WGMMA_SS(TYPE, TS, 16, BTT_SS_TAIL(16, TS, BTT_ACC16, "%8", "%9", "%10"))                \
   BTT_WGMMA_SS(TYPE, TS, 32, BTT_SS_TAIL(32, TS, BTT_ACC32, "%16", "%17", "%18"))             \
   BTT_WGMMA_SS(TYPE, TS, 64, BTT_SS_TAIL(64, TS, BTT_ACC64, "%32", "%33", "%34"))             \
   BTT_WGMMA_RS(TYPE, TS, 16, BTT_RS_TAIL(16, TS, BTT_ACC16, "{%8, %9, %10, %11}", "%12", "%13")) \
@@ -210,7 +221,9 @@ template <typename T, int N> struct WgmmaRS;
   BTT_WGMMA_RS(TYPE, TS, 64,                                                                   \
                BTT_RS_TAIL(64, TS, BTT_ACC64, "{%32, %33, %34, %35}", "%36", "%37"))           \
   BTT_WGMMA_RS(TYPE, TS, 128,                                                                  \
-               BTT_RS_TAIL(128, TS, BTT_ACC128, "{%64, %65, %66, %67}", "%68", "%69"))
+               BTT_RS_TAIL(128, TS, BTT_ACC128, "{%64, %65, %66, %67}", "%68", "%69"))           \
+  BTT_WGMMA_RS(TYPE, TS, 192,                                                                  \
+               BTT_RS_TAIL(192, TS, BTT_ACC192, "{%96, %97, %98, %99}", "%100", "%101"))
 
 BTT_WGMMA_BOTH(__nv_bfloat16, "bf16")
 BTT_WGMMA_BOTH(__half, "f16")

@@ -2,12 +2,20 @@
 transformer family (``transformer``: the GPT-style decoder, the BERT-style
 encoder with its MLM head, GPT-2 small and medium, BERT base and large),
 the LLaMA family (``llama``: RMSNorm, RoPE, GQA, SwiGLU, remat),
+DeepSeek-V3 (``deepseek``: latent attention, routed and shared experts;
+Moonlight-16B-A3B),
 ResNet-18/34/50/101 with BatchNorm (``resnet``), VGG-16/19 (``vgg``) and
 the MLP (``mlp``), each with a ``from_flax`` in its module (``from_flax``
 here is the transformer family's, which also names Llama's parameters).
 The transformer family and Llama take an ``sp_group`` for sequence
 parallelism, with ``sp_lm_loss`` as its loss."""
 
+from byteps_tpu_torch.models.deepseek import (  # noqa: F401
+    DeepseekTiny,
+    DeepseekV3Model,
+    Moonlight16B,
+    moe_lm_loss,
+)
 from byteps_tpu_torch.models.llama import (  # noqa: F401
     Llama1B,
     Llama7B,

@@ -5,7 +5,9 @@ flax modules: parameters in f32, products in ``dtype`` (bfloat16 by
 default) with both operands cast before the product and no biases,
 RMSNorm statistics in f32 (eps 1e-6) cast back to the input's dtype,
 rotary angles and the rotation in f32 (halves, not interleaved pairs),
-and a weight-tied head with f32 logits.
+and a weight-tied head with f32 logits. ``RMSNorm`` takes another eps
+and ``_rope`` interleaved pairs for the models that need them
+(``models.deepseek``).
 
 GQA repeats each K/V head ``num_heads // num_kv_heads`` times in a row
 (``jnp.repeat`` on the head axis) before the attention core, so the
@@ -52,30 +54,39 @@ _RMS_EPS = 1e-6  # the flax module's (torch.nn.RMSNorm's default differs)
 
 
 class RMSNorm(nn.Module):
-    """x * rsqrt(mean(x^2) + eps) * scale in f32, cast back to x's dtype."""
+    """x * rsqrt(mean(x^2) + eps) * scale in f32, cast back to x's dtype;
+    eps 1e-6 (flax's) unless given."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, eps: float = _RMS_EPS):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features))
+        self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + _RMS_EPS)
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + self.eps)
         return (y * self.scale).to(x.dtype)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
-          theta: float = 10000.0) -> torch.Tensor:
+          theta: float = 10000.0, interleaved: bool = False) -> torch.Tensor:
     """Rotary position embedding over [batch, seq, heads, head_dim]:
-    [x1 cos - x2 sin, x1 sin + x2 cos] over the two halves of head_dim,
-    angles positions * theta^(-i / half) in f32; ``positions`` [b or 1,
-    seq]."""
+    each pair (x1, x2) becomes (x1 cos - x2 sin, x1 sin + x2 cos) at angle
+    positions * theta^(-i / half) for pair i in f32; ``positions`` [b or
+    1, seq]. The pairs are element i of the two halves of head_dim
+    (LLaMA's layout), or with ``interleaved`` elements 2i and 2i + 1
+    (DeepSeek-V3's and the RoFormer paper's), each written back in
+    place."""
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
     angles = positions[..., None].float() * freqs  # [b, s, half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if interleaved:
+        x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+        return torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                           dim=-1).flatten(-2).to(x.dtype)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)

@@ -29,7 +29,9 @@ Each wrapper runs its plain PyTorch version (``_fwd_reference``,
 ``_bwd_dq_reference``, ``_bwd_dkv_reference``) when its tensors lie on the
 CPU, and launches its kernel, or raises, when they lie on a CUDA device;
 ``LAUNCHES[name]`` counts kernel launches only. The kernels take head
-dims 16, 32, 64 and 128.
+dims 16, 32, 64 and 128, the same for q, k and v, and latent attention's
+192 for q and k with 128 for v (``MIXED_HEAD_DIMS``, bfloat16 and float16
+only); the plain versions take any pair.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ _NEG_INF = -1e30
 _BIG = 1e30  # lse of a row with no live key: exp(s - lse) is exactly 0
 
 HEAD_DIMS = (16, 32, 64, 128)
+# (q and k's head dim, v's) the kernels also take, in bf16 and f16 only
+MIXED_HEAD_DIMS = ((192, 128),)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Kernel launches per wrapper (the plain versions never count).
@@ -174,12 +178,12 @@ def _kernels() -> ctypes.CDLL:
         from byteps_tpu_torch.ops import _cuda_lib
         lib = _cuda_lib.load("flash_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.btt_fa_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i,
-                                   p]
+        lib.btt_fa_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i,
+                                   i, p]
         lib.btt_fa_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                      f, i, i, p]
+                                      i, f, i, i, p]
         lib.btt_fa_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                       i, f, i, i, p]
+                                       i, i, f, i, i, p]
         for fn in (lib.btt_fa_fwd, lib.btt_fa_bwd_dq, lib.btt_fa_bwd_dkv):
             fn.restype = ctypes.c_int
         lib.btt_error_string.argtypes = [ctypes.c_int]
@@ -200,7 +204,8 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _check(q, k, v, *rest):
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take; ``rest`` are dO (v's
+    head dim) for the backward."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash attention kernel takes float32, bfloat16 or "
                         f"float16, got {q.dtype}")
@@ -210,12 +215,21 @@ def _check(q, k, v, *rest):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [batch, seq, heads, head_dim]")
     b, s_q, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
+    dv = v.shape[3]
+    if (k.shape != v.shape[:3] + (d,) or k.shape[0] != b
+            or k.shape[2] != h
+            or any(t.shape != (b, s_q, h, dv) for t in rest)):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}"
+                         + "".join(f", dO {tuple(t.shape)}" for t in rest))
+    if dv == d and d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the kernel "
                          f"(takes {HEAD_DIMS})")
+    if dv != d and ((d, dv) not in MIXED_HEAD_DIMS
+                    or q.dtype == torch.float32):
+        raise ValueError(f"head dims (q, k) {d} and (v) {dv} not supported "
+                         f"by the kernel in {q.dtype} (takes "
+                         f"{MIXED_HEAD_DIMS} in bfloat16 and float16)")
     if min(b, s_q, k.shape[1], h) < 1 or b * h > 65535:
         raise ValueError(f"unsupported sizes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -248,13 +262,14 @@ def flash_fwd(q, k, v, causal: bool, scale: float,
         return (o, lse) if return_lse else o
     _check(q, k, v)
     b, s_q, h, d = q.shape
-    o = torch.empty_like(q)
+    dv = v.shape[3]
+    o = q.new_empty((b, s_q, h, dv))
     lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
            if return_lse else None)
     rc = _kernels().btt_fa_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if return_lse else None, _DTYPE_CODES[q.dtype], b, h,
-        s_q, k.shape[1], d, float(scale), int(causal), _win(window),
+        s_q, k.shape[1], d, dv, float(scale), int(causal), _win(window),
         _stream(q))
     _raise_on(rc, "forward")
     LAUNCHES["fwd_lse" if return_lse else "fwd"] += 1
@@ -284,8 +299,8 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, causal: bool, scale: float,
     rc = _kernels().btt_fa_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d, float(scale),
-        int(causal), _win(window), _stream(q))
+        _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d, v.shape[3],
+        float(scale), int(causal), _win(window), _stream(q))
     _raise_on(rc, "dq")
     LAUNCHES["bwd_dq"] += 1
     return dq
@@ -304,8 +319,8 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal: bool, scale: float,
     rc = _kernels().btt_fa_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d, float(scale),
-        int(causal), _win(window), _stream(q))
+        _DTYPE_CODES[q.dtype], b, h, s_q, k.shape[1], d, v.shape[3],
+        float(scale), int(causal), _win(window), _stream(q))
     _raise_on(rc, "dk/dv")
     LAUNCHES["bwd_dkv"] += 1
     return dk, dv

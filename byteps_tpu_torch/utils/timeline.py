@@ -57,7 +57,12 @@ backward, where the program has no marks.
 
 A record may also carry counters: ``bn_launches``, the batch-norm kernel
 entries the step called (``ops.batch_norm``: a forward and a backward a
-norm of a training step).
+norm of a training step); ``moe_rows``, the (token, expert) pairs the
+step's expert layers routed to the experts held here
+(``models.deepseek``), summed on the card as the step runs and read once
+the trace stops. The expert layers also mark the card around each
+layer's forward (``moe_fwd_start``, ``moe_fwd_end``) and backward
+(``moe_bwd_start``, ``moe_bwd_end``), the layer's index as the leaf.
 """
 
 from __future__ import annotations
@@ -394,6 +399,16 @@ def mark(rec: dict, name: str, stream, lane: str = "compute",
     add_mark(rec, name, card_event(stream), lane, leaf)
 
 
+def add_count(name: str, n) -> None:
+    """Add ``n`` to counter ``name`` of the running step trace's current
+    record; nothing when no trace runs. ``n`` may be a tensor on the card,
+    added there with no host read (``stop_steps`` reads it)."""
+    tr = steps
+    if tr is not None:
+        rec = tr.current()
+        rec[name] = rec.get(name, 0) + n
+
+
 def _anchor(device):
     """(host clock, an event recorded on the idle card just after it);
     None off the card."""
@@ -480,6 +495,9 @@ def stop_steps(core_path: Optional[str] = None) -> dict:
                       for r in ffi.round_summary().get("rounds", ())}
     records = [r for r in tr.records if r["spans"] or r["marks"]]
     for rec in records:
+        for k, v in rec.items():
+            if isinstance(v, torch.Tensor):  # a counter summed on the card
+                rec[k] = int(v)
         rec["marks"] = _resolve(rec, tr.first, last)
         rec["spans"].sort(key=lambda s: s.start)
         if client is not None:

@@ -15,7 +15,9 @@ Phases, each of which raises on failure:
    small: b 8, s 512, h 12, d 64, bf16, causal, and the same in f32;
    BERT-Large: b 32, s 128, h 16, d 64, bf16, non-causal; Llama-1B: b 4,
    s 2048, h 32, d 64, bf16, causal; GPT-2 medium: b 8, s 512, h 16, d
-   64, bf16, causal), on f32 cases (unaligned s 600, rectangular causal
+   64, bf16, causal; Moonlight-16B-A3B's latent attention: b 4, s 8192,
+   h 16, q and k at d 192, v at 128, bf16, causal, its plain versions run
+   a batch row at a time), on f32 cases (unaligned s 600, rectangular causal
    100 x 260, sliding window 64 at s 300) and on the same shape classes
    in bf16 and f16 (plus non-causal 96 x 96); at the main paths' shapes
    each timed beside its plain version, PyTorch's
@@ -258,17 +260,21 @@ def tensor_core_sass():
             kernels[fn]["hgmma"] += 1
     named = {}
     for fn, v in kernels.items():
+        # bf16/f16: <T, D, DV(, LSE)>; f32: <D(, LSE)>
         m = re.search(r"(fa_\w+?)_(wgmma|tf32)_kernelI(\w*?)Li(\d+)E"
-                      r"(?:Lb([01])E)?", fn)
+                      r"(?:Li(\d+)E)?(?:Lb([01])E)?", fn)
         dtype = ("float32" if m.group(2) == "tf32" else
                  "bfloat16" if "bfloat16" in m.group(3) else "float16")
-        lse = f" lse={m.group(5)}" if m.group(5) else ""
-        named[f"{m.group(1)}_{m.group(2)} {dtype} d{m.group(4)}{lse}"] = v
-    # 3 dtypes x 4 head dims x (forward with and without lse, dQ, dK/dV)
+        dims = (m.group(4) if m.group(5) in (None, m.group(4))
+                else f"{m.group(4)}v{m.group(5)}")
+        lse = f" lse={m.group(6)}" if m.group(6) else ""
+        named[f"{m.group(1)}_{m.group(2)} {dtype} d{dims}{lse}"] = v
+    # 3 dtypes x 4 head dims x (forward with and without lse, dQ, dK/dV),
+    # and bf16/f16 at latent attention's 192 / 128
     f32 = sum(k.split()[1] == "float32" for k in named)
-    if (len(named) != 48 or f32 != 16
+    if (len(named) != 56 or f32 != 16
             or not all(v["hgmma"] > 0 for v in named.values())):
-        raise AssertionError(f"tensor-core kernels: expected 32 bf16/f16 "
+        raise AssertionError(f"tensor-core kernels: expected 40 bf16/f16 "
                              f"and 16 f32 instantiations with HGMMA, got "
                              f"{named}")
     log("tensor-core kernels (ptxas, SASS):", json.dumps(named))
@@ -346,27 +352,34 @@ def _live_pairs(s_q, s_k, causal, window):
     return total
 
 
-def _ops_per_pair(name):
-    """Matrix-product operations per live (query, key) pair and head-dim
-    element that the function needs: the forward's S and P V (2 + 2),
-    dQ's S, dP and dS K (6), dK/dV's S^T, dP^T, dS^T Q and P^T dO (8), in
-    every dtype (the bf16/f16 kernel's second P^T dO, p split into two
-    16-bit halves, is work it adds, not work the function needs)."""
-    return {"fwd_lse": 4, "fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}[name]
+def _ops_per_pair(name, d, dv):
+    """Matrix-product operations per live (query, key) pair and head that
+    the function needs, q and k at head dim ``d``, v and o at ``dv``: the
+    forward's S (2 d) and P V (2 dv), dQ's S, dP (2 dv) and dS K (2 d),
+    dK/dV's S^T, dP^T, dS^T Q and P^T dO, in every dtype (the bf16/f16
+    kernel's second P^T dO, p split into two 16-bit halves, is work it
+    adds, not work the function needs). At d == dv: 4 d, 6 d and 8 d."""
+    return {"fwd_lse": 2 * d + 2 * dv, "fwd": 2 * d + 2 * dv,
+            "bwd_dq": 4 * d + 2 * dv, "bwd_dkv": 4 * d + 4 * dv}[name]
 
 
-def _bound_ms(name, b, h, s_q, s_k, d, elem, causal, window, dtype):
+def _bound_ms(name, b, h, s_q, s_k, d, elem, causal, window, dtype,
+              dv=None):
     """Least time on the card: bytes read once and written once at the HBM
     rate against the matrix-product operations at the peak of the dtype
-    (exp and the rest are not counted)."""
-    q_bytes, kv_bytes = b * s_q * h * d * elem, b * s_k * h * d * elem
+    (exp and the rest are not counted); q, k, dq and dk at head dim
+    ``d``, v, o, dO and dv at ``dv`` (``d`` when None)."""
+    dv = d if dv is None else dv
+    q_bytes, k_bytes = b * s_q * h * d * elem, b * s_k * h * d * elem
+    o_bytes, v_bytes = b * s_q * h * dv * elem, b * s_k * h * dv * elem
     row_bytes = b * h * s_q * 4  # one f32 per query row (lse, D)
-    ops = _ops_per_pair(name) * d * b * h * _live_pairs(
+    ops = _ops_per_pair(name, d, dv) * b * h * _live_pairs(
         s_q, s_k, causal, window)
-    nbytes = {"fwd_lse": 2 * q_bytes + 2 * kv_bytes + row_bytes,
-              "fwd": 2 * q_bytes + 2 * kv_bytes,
-              "bwd_dq": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
-              "bwd_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}[name]
+    io = q_bytes + k_bytes + v_bytes + o_bytes  # o, or dO in the backward
+    nbytes = {"fwd_lse": io + row_bytes,
+              "fwd": io,
+              "bwd_dq": io + q_bytes + 2 * row_bytes,
+              "bwd_dkv": io + k_bytes + v_bytes + 2 * row_bytes}[name]
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -414,32 +427,35 @@ def compare(dtype, what, got, want, mag, mag_dp=None):
 
 
 CASES = [
-    # name, b, s_q, s_k, h, d, dtype, causal, window
-    ("gpt2", BATCH, SEQ, SEQ, 12, 64, "bfloat16", True, None),
+    # name, b, s_q, s_k, h, d (q, k), dv (v, o), dtype, causal, window
+    ("gpt2", BATCH, SEQ, SEQ, 12, 64, 64, "bfloat16", True, None),
     # BERT-Large MLM (phase 6): non-causal
-    ("bert_large", 32, 128, 128, 16, 64, "bfloat16", False, None),
+    ("bert_large", 32, 128, 128, 16, 64, 64, "bfloat16", False, None),
     # Llama-1B (phase 7): 32 query heads on K/V repeated from 4 KV heads
-    ("llama1b", 4, 2048, 2048, 32, 64, "bfloat16", True, None),
+    ("llama1b", 4, 2048, 2048, 32, 64, 64, "bfloat16", True, None),
     # Llama-1B under Ulysses over 2 ranks (phase 9): 8192 tokens, half the
     # query heads, K/V repeated inside the inner call from 2 KV heads
-    ("ulysses_8192", 1, 8192, 8192, 16, 64, "bfloat16", True, None),
+    ("ulysses_8192", 1, 8192, 8192, 16, 64, 64, "bfloat16", True, None),
     # GPT-2 medium under TP over 2 ranks (phase 10 (a)): half the heads
-    ("tp_gpt2m", 4, 1024, 1024, 8, 64, "bfloat16", True, None),
+    ("tp_gpt2m", 4, 1024, 1024, 8, 64, 64, "bfloat16", True, None),
     # GPT-2 medium's pipeline stages (phase 10 (b)): one microbatch row
-    ("pp_gpt2m", 1, 1024, 1024, 16, 64, "bfloat16", True, None),
+    ("pp_gpt2m", 1, 1024, 1024, 16, 64, 64, "bfloat16", True, None),
     # GPT-2 small on each rank of phase 11's fleet: its 2 rows of the 8
-    ("gpt2_local_ps", 2, SEQ, SEQ, 12, 64, "bfloat16", True, None),
+    ("gpt2_local_ps", 2, SEQ, SEQ, 12, 64, 64, "bfloat16", True, None),
     # GPT-2 medium's data-parallel step (phases 6 and 12)
-    ("gpt2_medium", BATCH, SEQ, SEQ, 16, 64, "bfloat16", True, None),
+    ("gpt2_medium", BATCH, SEQ, SEQ, 16, 64, 64, "bfloat16", True, None),
     # GPT-2 small in f32 (phase 13)
-    ("gpt2_f32", BATCH, SEQ, SEQ, 12, 64, "float32", True, None),
+    ("gpt2_f32", BATCH, SEQ, SEQ, 12, 64, 64, "float32", True, None),
+    # Moonlight-16B-A3B's latent attention (the benchmark's moonlight-coll
+    # cell): 4 x 8192 tokens, 16 heads, q and k at 128 + 64, v at 128
+    ("moonlight_mla", 4, 8192, 8192, 16, 192, 128, "bfloat16", True, None),
     # f32 on every shape class
-    ("unaligned_f32", 1, 600, 600, 2, 32, "float32", True, None),
-    ("rect_causal", 1, 100, 260, 2, 16, "float32", True, None),
-    ("window64", 1, 300, 300, 2, 16, "float32", True, 64),
+    ("unaligned_f32", 1, 600, 600, 2, 32, 32, "float32", True, None),
+    ("rect_causal", 1, 100, 260, 2, 16, 16, "float32", True, None),
+    ("window64", 1, 300, 300, 2, 16, 16, "float32", True, 64),
 ] + [
     # bf16 / f16: the tensor-core kernels on every shape class
-    (f"{name}_{dtype}", b, s_q, s_k, h, d, dtype, causal, window)
+    (f"{name}_{dtype}", b, s_q, s_k, h, d, d, dtype, causal, window)
     for dtype in ("bfloat16", "float16")
     for (name, b, s_q, s_k, h, d, causal, window) in [
         ("unaligned", 1, 600, 600, 2, 32, True, None),
@@ -450,7 +466,30 @@ CASES = [
 ]
 # the main paths' shapes, timed beside their plain versions and SDPA
 TIMED = ("gpt2", "bert_large", "llama1b", "ulysses_8192", "tp_gpt2m",
-         "pp_gpt2m", "gpt2_local_ps", "gpt2_medium", "gpt2_f32")
+         "pp_gpt2m", "gpt2_local_ps", "gpt2_medium", "gpt2_f32",
+         "moonlight_mla")
+# elements of one [rows, h, s_q, s_k] f32 matrix of the plain versions at
+# most (Ulysses' 16 x 8192^2, 4 GiB): a larger case runs them on fewer
+# batch rows at a time
+PLAIN_ELEMENTS = 2 ** 30
+
+
+def _plain_rows(fn, rows, *args):
+    """``fn(*args)`` (a plain version) over ``rows`` batch rows of its
+    tensor arguments at a time, each [b, ...], its outputs (a tensor, a
+    tuple or a dict of [b, ...] tensors) joined on the batch axis: each
+    batch row is a problem of its own."""
+    import torch
+    b = args[0].shape[0]
+    if rows >= b:
+        return fn(*args)
+    parts = [fn(*(a[i:i + rows] if torch.is_tensor(a) else a
+                  for a in args)) for i in range(0, b, rows)]
+    if isinstance(parts[0], dict):
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(xs) for xs in zip(*parts))
+    return torch.cat(parts)
 
 
 def _sdpa_backend(dtype):
@@ -477,29 +516,34 @@ def kernel_phase(cases=None):
     log("torch.backends.cuda.matmul.allow_tf32 = False")
 
     failures, errors, readings, report = [], {}, {}, {}
-    for (case, b, s_q, s_k, h, d, dtype, causal, window) in CASES:
+    for (case, b, s_q, s_k, h, d, d_v, dtype, causal, window) in CASES:
         if cases is not None and case not in cases:
             continue
         dt = getattr(torch, dtype)
         g = torch.Generator().manual_seed(1)
+        rows = max(1, PLAIN_ELEMENTS // (h * s_q * s_k))
 
-        def rnd(s):
-            return torch.randn((b, s, h, d), generator=g).to("cuda", dt)
+        def plain(fn, *a):
+            return _plain_rows(fn, rows, *a)
 
-        q, k, v, do = rnd(s_q), rnd(s_k), rnd(s_k), rnd(s_q)
+        def rnd(s, width):
+            return torch.randn((b, s, h, width), generator=g).to("cuda", dt)
+
+        q, k, v, do = rnd(s_q, d), rnd(s_k, d), rnd(s_k, d_v), rnd(s_q, d_v)
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.flash_fwd(q, k, v, causal, scale, window)
         o_nl = fa.flash_fwd(q, k, v, causal, scale, window,
                             return_lse=False)
-        o_ref, lse_ref = fa._fwd_reference(q, k, v, causal, scale, window)
+        o_ref, lse_ref = plain(fa._fwd_reference, q, k, v, causal, scale,
+                               window)
         dvec = (do.float() * o_ref.float()).sum(-1).permute(
             0, 2, 1).contiguous()
         args = (q, k, v, do, lse_ref, dvec, causal, scale, window)
         dq = fa.flash_bwd_dq(*args)
         dk, dv = fa.flash_bwd_dkv(*args)
-        dq_ref = fa._bwd_dq_reference(*args)
-        dk_ref, dv_ref = fa._bwd_dkv_reference(*args)
-        mag = fa._term_magnitudes(*args)
+        dq_ref = plain(fa._bwd_dq_reference, *args)
+        dk_ref, dv_ref = plain(fa._bwd_dkv_reference, *args)
+        mag = plain(fa._term_magnitudes, *args)
         torch.cuda.synchronize()
 
         checks = {
@@ -541,12 +585,12 @@ def kernel_phase(cases=None):
             "bwd_dkv": lambda: fa.flash_bwd_dkv(*args),
         }
         pt = {
-            "fwd_lse": lambda: fa._fwd_reference(q, k, v, causal, scale,
-                                                 window),
-            "fwd": lambda: fa._fwd_reference(q, k, v, causal, scale,
-                                             window),
-            "bwd_dq": lambda: fa._bwd_dq_reference(*args),
-            "bwd_dkv": lambda: fa._bwd_dkv_reference(*args),
+            "fwd_lse": lambda: plain(fa._fwd_reference, q, k, v, causal,
+                                     scale, window),
+            "fwd": lambda: plain(fa._fwd_reference, q, k, v, causal,
+                                 scale, window),
+            "bwd_dq": lambda: plain(fa._bwd_dq_reference, *args),
+            "bwd_dkv": lambda: plain(fa._bwd_dkv_reference, *args),
         }
         qt, kt_, vt = (t.transpose(1, 2) for t in (q, k, v))
         backend, backend_name = _sdpa_backend(dtype)
@@ -584,7 +628,7 @@ def kernel_phase(cases=None):
         timed = report[case] = {}
         for kname in kt:
             bound, by = _bound_ms(kname, b, h, s_q, s_k, d, elem, causal,
-                                  window, dtype)
+                                  window, dtype, d_v)
             ms, ms_min, ms_max = dev[kname]
             timed[kname] = {
                 "ms": ms, "ms_spread": [ms_min, ms_max],
@@ -594,7 +638,7 @@ def kernel_phase(cases=None):
                 "library_ms": library[kname][0],
                 "library_ms_spread": list(library[kname][1:]),
                 "library_backend": backend_name,
-                "tflops": _ops_per_pair(kname) * d * pairs
+                "tflops": _ops_per_pair(kname, d, d_v) * pairs
                 / (ms * 1e-3) / 1e12,
                 "bound_share": bound / ms,
             }

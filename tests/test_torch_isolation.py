@@ -38,6 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_byteps_tpu():
                 "byteps_tpu_torch.server.__main__",
                 "byteps_tpu_torch.models.transformer",
                 "byteps_tpu_torch.models.llama",
+                "byteps_tpu_torch.models.deepseek",
                 "byteps_tpu_torch.models.resnet", "byteps_tpu_torch.models.vgg",
                 "byteps_tpu_torch.models.mlp", "byteps_tpu_torch.stateful",
                 "byteps_tpu_torch.parallel.hierarchical",

@@ -1,8 +1,13 @@
 """The collective training steps never make the card wait for the host.
 
 On the card (``cuda``): one warmed-up step of GPT-2 small in bf16 (full
-width, 8 x 512 tokens, flash attention, AdamW: chip_smoke.py's phase 3)
-and of ResNet-50 (224^2, batch 256, bf16, SGD: phase 5 (a)) under
+width, 8 x 512 tokens, flash attention, AdamW: chip_smoke.py's phase 3),
+of ResNet-50 (224^2, batch 256, bf16, SGD: phase 5 (a)) and of
+Moonlight-16B-A3B at its published widths (three of its layers, the dense
+one and two expert layers holding 8 of 64 experts, 2 x 4096 tokens,
+through ``bps.DistributedOptimizer(AdamW)`` and the correction-bias
+update: the expert layer's sort, counts and grouped products stay on the
+card) under
 ``torch.cuda.set_sync_debug_mode("error")``, with the caching allocator's
 retries unchanged across it (a retry frees the cache with cudaFree, which
 waits for the card, and the debug mode does not see it); then each step
@@ -104,9 +109,31 @@ def _resnet50():
     return lambda: step(batch)
 
 
+def _moonlight():
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import Moonlight16B, moe_lm_loss
+    model = Moonlight16B(num_layers=3, vocab_size=20480, experts=(0, 8),
+                         attn_impl="flash")
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=2.2e-4, betas=(0.9, 0.95),
+                          weight_decay=0.1),
+        named_parameters=model.named_parameters())
+    tokens = torch.randint(0, 20480, (2, 4096),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+
+    def step():
+        opt.zero_grad()
+        loss = moe_lm_loss(model(tokens), tokens)
+        loss.backward()
+        opt.step()
+        model.update_bias()
+        return loss
+    return step
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("build", [_gpt2_bf16, _resnet50],
-                         ids=["gpt2_small_bf16", "resnet50"])
+@pytest.mark.parametrize("build", [_gpt2_bf16, _resnet50, _moonlight],
+                         ids=["gpt2_small_bf16", "resnet50", "moonlight"])
 def test_step_makes_the_card_wait_nowhere(build, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
