@@ -38,8 +38,11 @@ from byteps_tpu_torch.parallel._collectives import (group_rank, group_size,
 from byteps_tpu_torch.parallel.ring_attention import (full_attention,
                                                       ring_attention)
 from byteps_tpu_torch.parallel.ulysses import ulysses_attention
+from byteps_tpu_torch.utils import timeline as _tl
 
 _LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
+# ``Embed.attend`` pads its table to a multiple of this many rows
+ATTEND_ROWS = 64
 
 
 def _attention_fn(impl: str, sp_group=None) -> Callable:
@@ -111,7 +114,19 @@ class Dense(nn.Module):
 
 class Embed(nn.Module):
     """flax ``Embed``: an f32 table cast to ``dtype`` on lookup; ``attend``
-    is the weight-tied output projection ``x @ E^T`` in ``dtype``."""
+    is the weight-tied output projection ``x @ E^T`` in ``dtype``.
+
+    ``attend`` multiplies by the cast table with zero rows appended up to
+    a multiple of ``ATTEND_ROWS`` and returns the first ``num`` columns, a
+    view: with an odd row count (GPT-2's 50257) no operand of the forward
+    product or of its two backward products has the 16-byte aligned
+    leading dimension cuBLAS's Hopper kernels need. The padded columns
+    never leave ``attend``; the slice's backward gives them a zero
+    gradient and the pad's backward drops the padded rows' gradient, so
+    the parameter and every shape a caller sees stay ``[num, features]``.
+    Under a step trace each padded call adds the rows it appended to the
+    record's ``head_pad_rows``.
+    """
 
     def __init__(self, num: int, features: int, dtype: torch.dtype,
                  generator: torch.Generator):
@@ -124,7 +139,13 @@ class Embed(nn.Module):
         return F.embedding(ids, self.embedding).to(self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.embedding.to(self.dtype).T
+        table = self.embedding.to(self.dtype)
+        num = table.shape[0]
+        pad = -num % ATTEND_ROWS
+        if not pad:
+            return x.to(self.dtype) @ table.T
+        _tl.add_count("head_pad_rows", pad)
+        return (x.to(self.dtype) @ F.pad(table, (0, 0, 0, pad)).T)[..., :num]
 
 
 class LayerNorm(nn.Module):

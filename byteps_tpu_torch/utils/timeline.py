@@ -60,9 +60,12 @@ entries the step called (``ops.batch_norm``: a forward and a backward a
 norm of a training step); ``moe_rows``, the (token, expert) pairs the
 step's expert layers routed to the experts held here
 (``models.deepseek``), summed on the card as the step runs and read once
-the trace stops. The expert layers also mark the card around each
-layer's forward (``moe_fwd_start``, ``moe_fwd_end``) and backward
-(``moe_bwd_start``, ``moe_bwd_end``), the layer's index as the leaf.
+the trace stops; ``head_pad_rows``, the zero rows the step's tied heads
+appended to their tables (``models.transformer`` ``Embed.attend``: 47 a
+GPT-2 step, absent where the vocabulary is a multiple of 64). The expert
+layers also mark the card around each layer's forward
+(``moe_fwd_start``, ``moe_fwd_end``) and backward (``moe_bwd_start``,
+``moe_bwd_end``), the layer's index as the leaf.
 """
 
 from __future__ import annotations

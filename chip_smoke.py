@@ -1098,9 +1098,12 @@ def _profile_step(run, require_exact=False):
     kernels (ResNet-50's profile kept a fifth of the card's time), so
     ``profiled_share`` (union / the card's time) says how much of the step
     the families cover. A synchronizing call in the step fails it (the
-    debug step raises); with ``require_exact`` an allocator retry or a
-    card that waited for the host fails it too. The caller adds the idle
-    share."""
+    debug step raises), and so does an allocator retry; with
+    ``require_exact`` a card that waited for the host fails it too.
+    Where the card waited, its time is only an upper bound: ``device_ms``
+    and ``profiled_share`` are then None and the bound is
+    ``device_ms_upper_bound``. The caller adds the idle share
+    (``_idle_share``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1115,10 +1118,13 @@ def _profile_step(run, require_exact=False):
     backlog = _card_backlog(run)
     device_ms = backlog.pop("device_ms")
     host.update(backlog)
-    if require_exact and (allocator["num_alloc_retries"]
-                          or not host["device_ms_exact"]):
+    if allocator["num_alloc_retries"]:
+        raise AssertionError(f"the allocator retried in the step: "
+                             f"{allocator}")
+    if require_exact and not host["device_ms_exact"]:
         raise AssertionError(f"the card waited for the host in the step: "
-                             f"{host}, allocator {allocator}")
+                             f"{host}")
+    exact = host["device_ms_exact"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -1173,16 +1179,32 @@ def _profile_step(run, require_exact=False):
     host["host_wait"] = ("none" if not host["host_waited"] else
                          "launch queue full" if queued > LAUNCH_QUEUE else
                          "not explained")
-    return {"host_timed_step": host, "device_ms": device_ms,
+    return {"host_timed_step": host,
+            "device_ms": device_ms if exact else None,
+            "device_ms_upper_bound": None if exact else device_ms,
             "sync_debug_allocator": allocator, "launches": launches,
             "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_union_ms": union_us / 1e3, "device_events": len(spans),
             "device_span_ms": (spans[-1][1] - spans[0][0]) / 1e3
             if spans else 0.0,
-            "profiled_share": union_us / 1e3 / device_ms,
+            "profiled_share": union_us / 1e3 / device_ms if exact else None,
             "family_ms": {k: v / 1e3 for k, v in families.items()},
             "flash_kernel_ms": flash,
             "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+
+
+def _per_card_ms(ms, profile):
+    """``ms`` over the card's time for the profiled step, or None where
+    that time is only an upper bound (the card waited for the host)."""
+    card = profile["device_ms"]
+    return None if card is None else ms / card
+
+
+def _idle_share(profile, times):
+    """1 - the card's time for the step / the median of the unprofiled
+    ``times``, or None where the card's time is only an upper bound."""
+    card = profile["device_ms"]
+    return None if card is None else 1.0 - card / _median(times)
 
 
 def _evaluate(lm, model, tokens, small):
@@ -1243,7 +1265,7 @@ def _profile_lm(label, step, model, batch, times, kernels=BF16_KERNELS,
         if not profile["flash_kernel_ms"][name] > 0:
             raise AssertionError(f"{label}: profile shows no {name}: "
                                  f"{profile['flash_kernel_ms']}")
-    profile["idle_share"] = 1.0 - profile["device_ms"] / _median(times)
+    profile["idle_share"] = _idle_share(profile, times)
     log(f"{label} step profile:", json.dumps(profile))
     return profile
 
@@ -1260,8 +1282,11 @@ def collective_phase():
             "collective")
         launches["fwd"] = _evaluate(GPT2, model, tokens,
                                     tokens[:2, :128])[0]["fwd"]
-        profile = _profile_lm("collective", step, model, tokens, times,
-                              require_exact=True)
+        # this step takes the card ~24 ms on an H100 and the host 45-68 ms
+        # to enqueue: behind the sleep the host keeps ahead only by the
+        # launch queue, and a slow host falls behind, so the card's time
+        # need not be exact here (an allocator retry still fails it)
+        profile = _profile_lm("collective", step, model, tokens, times)
         del model
     finally:
         bps.shutdown()
@@ -1776,8 +1801,8 @@ def resnet_phase():
         model, run = paths["collective"]
         n_params = len(list(model.parameters()))
         profile = _profile_step(lambda: run(batch), require_exact=True)
-        profile["idle_share"] = 1.0 - profile["device_ms"] / _median(
-            rec["collective"]["step_ms"])
+        profile["idle_share"] = _idle_share(profile,
+                                            rec["collective"]["step_ms"])
         log("resnet50 collective step profile:", json.dumps(profile))
         del paths, model, run
 
@@ -1960,7 +1985,7 @@ def bert_phase():
                         params=n_params, profile=profile,
                         flash_vs_plain_max_abs_err=err,
                         mlm_out_fwd_bwd_ms=mlm_ms,
-                        mlm_out_share=mlm_ms / profile["device_ms"])
+                        mlm_out_share=_per_card_ms(mlm_ms, profile))
         del model, step, batch
         torch.cuda.empty_cache()
 
@@ -1988,8 +2013,8 @@ def bert_phase():
             p["peak_memory_gb"],
             # the card does (a)'s work a step; the rest of the step it
             # waits for the round trip
-            idle_share_vs_collective_card_ms=1.0 - profile["device_ms"]
-            / _median(p["step_ms"]),
+            idle_share_vs_collective_card_ms=_idle_share(profile,
+                                                         p["step_ms"]),
             **{k: p[k] for k in ("exposed_ms_median",
                                  "pushed_before_backward_share") if k in p},
             **({"staging_ms": {k: _median([t[k] * 1e3 for t in p["staging"]])
@@ -2061,8 +2086,7 @@ def llama_phase():
     _losses_match("llama1b ps", p_losses, losses)
     ps_out = _summary(
         LLAMA, p_losses, p_times, p_launches, p_peak,
-        idle_share_vs_collective_card_ms=1.0 - profile["device_ms"]
-        / _median(p_times),
+        idle_share_vs_collective_card_ms=_idle_share(profile, p_times),
         staging_ms={k: _median([t[k] * 1e3 for t in staging])
                     for k in ("d2h_s", "core_s", "h2d_s")},
         wire_bytes_per_step=4 * n_params)
@@ -4358,7 +4382,7 @@ def f32_phase():
            "step1_loss_err": abs(losses[0] - ref_loss),
            "step1_loss_bound": loss_bound, "logit_max_abs_err": logit_err,
            "logit_bound": logit_bound, "flash_ms": flash_ms,
-           "flash_share_of_device_ms": flash_ms / profile["device_ms"],
+           "flash_share_of_device_ms": _per_card_ms(flash_ms, profile),
            "profile": profile}
     log("phase 13 (GPT-2 small, f32):", json.dumps(
         {k: v for k, v in out.items() if k != "profile"}))

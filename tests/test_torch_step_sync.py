@@ -17,7 +17,9 @@ that the card never waited for the host, and a planted wait (an
 
 On the CPU: ``_card_backlog``'s arithmetic against a stand-in card whose
 events report when a card that runs behind the host (or one that runs
-every launch at once) would reach them.
+every launch at once) would reach them; ``_profile_step`` failing an
+allocator retry on every path, and reporting no card time where the card
+waited for the host.
 """
 
 import time
@@ -89,6 +91,74 @@ def test_host_wait_is_told_apart_from_the_card_waiting(monkeypatch):
     _Card(monkeypatch, sleep_s=0.005, lag_s=0.1)
     got = cs._card_backlog(lambda: _host_step(seconds=0.2))
     assert got["host_waited"] and got["device_ms_exact"], got
+
+
+class _NoProfiler:
+    """Stands in for ``torch.profiler.profile``: a profile that saw
+    nothing."""
+
+    def __init__(self, activities=()):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        return []
+
+
+def _profile(monkeypatch, retries, backlog_ms, require_exact):
+    """``chip_smoke._profile_step`` of a host-only step, its allocator
+    making ``retries`` retries and the card behind the sleep reading
+    ``backlog_ms``: the card took 40 ms for the step."""
+    import torch.profiler
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.profiler, "profile", _NoProfiler)
+    monkeypatch.setattr(cs, "_sync_debug_step", lambda run: {
+        "num_alloc_retries": retries, "num_device_alloc": 0,
+        "num_device_free": 0})
+    monkeypatch.setattr(cs, "_card_backlog", lambda run: {
+        "device_ms": 40.0, "enqueue_behind_sleep_ms": 30.0,
+        "sleep_ms": 500.0, "host_waited": False, "markers": 9,
+        "backlog_ms": backlog_ms, "device_ms_exact": backlog_ms > 0})
+    return cs._profile_step(lambda: None, require_exact=require_exact)
+
+
+@pytest.mark.parametrize("require_exact", [False, True])
+def test_profile_fails_an_allocator_retry_on_every_path(monkeypatch,
+                                                        require_exact):
+    # a retry frees the cache with cudaFree, which waits for the card:
+    # it fails the step whether or not the card's time must be exact
+    with pytest.raises(AssertionError, match="allocator retried"):
+        _profile(monkeypatch, retries=1, backlog_ms=5.0,
+                 require_exact=require_exact)
+
+
+def test_profile_keeps_an_exact_card_time(monkeypatch):
+    got = _profile(monkeypatch, retries=0, backlog_ms=5.0,
+                   require_exact=True)
+    assert got["device_ms"] == 40.0 and got["device_ms_upper_bound"] is None
+    assert got["profiled_share"] == 0.0
+    # the median of the steps after the first: 50 ms
+    assert cs._idle_share(got, [90.0, 50.0, 50.0, 60.0]) == pytest.approx(0.2)
+    assert cs._per_card_ms(10.0, got) == pytest.approx(0.25)
+
+
+def test_profile_gives_no_card_time_where_the_card_waited(monkeypatch):
+    # the card caught up with the host: its 40 ms are only an upper
+    # bound, so neither the card's time nor a share of it is reported
+    got = _profile(monkeypatch, retries=0, backlog_ms=-1.0,
+                   require_exact=False)
+    assert got["device_ms"] is None and got["device_ms_upper_bound"] == 40.0
+    assert got["profiled_share"] is None
+    assert cs._idle_share(got, [90.0, 50.0]) is None
+    assert cs._per_card_ms(10.0, got) is None
+    with pytest.raises(AssertionError, match="waited for the host"):
+        _profile(monkeypatch, retries=0, backlog_ms=-1.0,
+                 require_exact=True)
 
 
 def _gpt2_bf16():

@@ -3,7 +3,8 @@
 A tiny LM (2 layers, d_model 64, 4 heads, vocab 128) is initialised in
 flax, its parameters move over with ``from_flax``, and the logits and
 every parameter's gradient of ``lm_loss`` are compared, with the attention
-core ``full`` and ``flash``.
+core ``full`` and ``flash``; again at an odd vocabulary of 131, where the
+tied head multiplies by a table padded to 192 rows (``Embed.attend``).
 
 Tolerances: in f32 the two differ only by summation order (XLA's and
 PyTorch's matmuls, layer-norm statistics), so 1e-4 relative / 1e-5
@@ -48,14 +49,14 @@ def _flax_params(model, tokens):
 
 @pytest.mark.parametrize("attn_impl", ["full", "flash"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_lm_matches_flax(attn_impl, dtype):
+def test_lm_matches_flax(attn_impl, dtype, cfg=CFG):
     rng = np.random.default_rng(0)
-    tokens = rng.integers(0, CFG["vocab_size"], size=(2, 24)).astype(np.int32)
+    tokens = rng.integers(0, cfg["vocab_size"], size=(2, 24)).astype(np.int32)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    fmodel = FlaxLM(**CFG, dtype=jdt, attn_impl=attn_impl)
+    fmodel = FlaxLM(**cfg, dtype=jdt, attn_impl=attn_impl)
     params = _flax_params(fmodel, tokens)
 
-    model = TransformerLM(**CFG, dtype=tdt, attn_impl=attn_impl,
+    model = TransformerLM(**cfg, dtype=tdt, attn_impl=attn_impl,
                           device="cpu")
     missing = model.load_state_dict(from_flax(params), strict=True)
     assert not missing.missing_keys and not missing.unexpected_keys
@@ -91,6 +92,14 @@ def test_lm_matches_flax(attn_impl, dtype):
         for k, g in grads.items():
             err = np.linalg.norm(g - want[k])
             assert err <= 3e-2 * np.linalg.norm(want[k]) + 1e-3, (k, err)
+
+
+@pytest.mark.parametrize("attn_impl", ["full", "flash"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_matches_flax_at_an_odd_vocabulary(attn_impl, dtype):
+    # 131 rows: the padded head's logits and every gradient, the table's
+    # too, against flax's unpadded product at the same tolerances
+    test_lm_matches_flax(attn_impl, dtype, cfg={**CFG, "vocab_size": 131})
 
 
 def test_from_flax_names_every_parameter():

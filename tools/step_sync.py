@@ -184,8 +184,9 @@ def main() -> int:
             try:
                 profile = cs._profile_step(run)
                 profile.pop("top_kernels_ms")
-            except RuntimeError as e:  # a synchronizing call in the step
-                profile = {"sync_debug_error": str(e)[:500]}
+            # a synchronizing call or an allocator retry in the step
+            except (RuntimeError, AssertionError) as e:
+                profile = {"step_error": str(e)[:500]}
             rec = {"profile": profile,
                    "behind_sleep_ops": _behind_sleep(run),
                    "planted_wait": cs._card_backlog(
