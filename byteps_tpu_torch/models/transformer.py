@@ -38,7 +38,6 @@ from byteps_tpu_torch.parallel._collectives import (group_rank, group_size,
 from byteps_tpu_torch.parallel.ring_attention import (full_attention,
                                                       ring_attention)
 from byteps_tpu_torch.parallel.ulysses import ulysses_attention
-from byteps_tpu_torch.utils import timeline as _tl
 
 _LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
 # ``Embed.attend`` pads its table to a multiple of this many rows
@@ -124,8 +123,6 @@ class Embed(nn.Module):
     never leave ``attend``; the slice's backward gives them a zero
     gradient and the pad's backward drops the padded rows' gradient, so
     the parameter and every shape a caller sees stay ``[num, features]``.
-    Under a step trace each padded call adds the rows it appended to the
-    record's ``head_pad_rows``.
     """
 
     def __init__(self, num: int, features: int, dtype: torch.dtype,
@@ -144,7 +141,6 @@ class Embed(nn.Module):
         pad = -num % ATTEND_ROWS
         if not pad:
             return x.to(self.dtype) @ table.T
-        _tl.add_count("head_pad_rows", pad)
         return (x.to(self.dtype) @ F.pad(table, (0, 0, 0, pad)).T)[..., :num]
 
 

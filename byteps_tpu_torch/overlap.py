@@ -69,8 +69,11 @@ Options: ``wire_dtype`` shrinks the device->host copy (bf16 2x, int8 +
 per-block scales ~4x; the host pushes f32), and
 ``backward_passes_per_step`` accumulates K passes in ``.grad`` on the card
 and communicates once, on the K-th (the reference's accumulation
-contract). ``bucketed.py`` and the PS-mode ``DistributedOptimizer`` run on
-the same ``_TapState``.
+contract). ``bucketed.py`` runs on the same ``_TapState`` and step
+(``_hooked_step``), with bucket flushes, or with no hooks at all
+(``hooks=False``: ``collect`` stages every gradient once backward has
+returned); the PS-mode ``DistributedOptimizer`` runs on the same
+``_TapState`` with its own ``step``.
 """
 
 from __future__ import annotations
@@ -109,7 +112,8 @@ class _TapState:
     queued so far. ``sum_wire`` has the servers sum a ``bfloat16`` or
     ``float16`` wire as it is (declared in that dtype, no host
     re-expansion), unless a codec is configured: the C codecs take f32.
-    ``hooks=False`` registers none: the step stages the leaves itself.
+    ``hooks=False`` registers none: ``collect`` stages the leaves (with
+    one process bucket by bucket, so it needs ``buckets``).
     Buffers, tensor ids and handles are keyed by (leaf, shard)."""
 
     def __init__(self, client, params, prefix: str, average: bool,
@@ -188,6 +192,7 @@ class _TapState:
         # process. So the hooks hold it weakly, and once the state is
         # dropped its hooks are removed and its stager stopped.
         me = weakref.ref(self)
+        self.hooked = hooks
         self.hooks = [p.register_post_accumulate_grad_hook(
             partial(_hook, me, i)) for i, p in enumerate(self.params)
         ] if hooks else []
@@ -572,16 +577,21 @@ class _TapState:
         """Wait every handle in model order and upload each sum into its
         ``.grad`` on the copy stream; the caller's stream then waits for
         the uploads. Raises, after settling every handle, when a
-        parameter got no gradient or a push or pull failed. A local group
-        without hooks stages every gradient here, once backward has
-        returned."""
-        staged_here = self.k > 1 and not self.hooks
-        if staged_here:
+        parameter got no gradient or a push or pull failed. Without hooks
+        every gradient is staged here, once backward has returned: a local
+        group hands them all to the window's round; one process copies
+        each bucket to the host and pushes it on this thread, last bucket
+        first."""
+        if not self.hooked:
             self.fired.update(i for i, p in enumerate(self.params)
                               if p.grad is not None)
         self.check_fired()
-        if staged_here:
+        if not self.hooked and self.k > 1:
             self._ready(range(len(self.params)))
+        elif not self.hooked:
+            for b in reversed(range(len(self.buckets))):  # backward order
+                self.staged[b].extend(self.wire(i) for i in self.buckets[b])
+                self._drain(b)
         if timeout is None:
             timeout = local_stage.timeout_s()
         deadline = time.monotonic() + timeout
@@ -733,9 +743,10 @@ def _release(hooks, stager) -> None:
 
 def _hooked_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                  state: _TapState):
-    """``step(model_or_params, batch) -> loss`` over ``state``'s hooks:
-    backward (the hooks push), ``collect``, ``optimizer.step()``; K-pass
-    accumulation windows as ``make_overlapped_train_step`` describes."""
+    """``step(model_or_params, batch) -> loss`` over ``state``: backward
+    (the hooks push; without hooks ``collect`` stages and pushes),
+    ``collect``, ``optimizer.step()``; K-pass accumulation windows as
+    ``make_overlapped_train_step`` describes."""
     k = state.bpps
     micro = [0]
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``make_train_step`` / ``_make_ps_train_step`` and
 ``make_async_train_step`` in ``byteps_tpu/jax/training.py``. The
-synchronous step runs backward, reduces the gradients, and applies the
-optimizer:
+synchronous step runs backward, reduces the gradients through
+``push_pull``, and applies the optimizer:
 
 - collective mode: the compression cast, the hierarchical all-reduce over
   the process groups (the local one, and a mesh's ``dcn`` group where
@@ -68,25 +68,14 @@ def make_train_step(
     group = st.group
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
-    def reduce(grads):
-        dtypes = [g.dtype for g in grads]
-        if use_ps and _h.group_size(group) > 1:
-            from byteps_tpu_torch.ps import local_push_pull
-            return local_push_pull(grads, average, ps_prefix, compression)
-        if use_ps:
-            from byteps_tpu_torch.ps import ps_push_pull
-            wire = ps_push_pull([compression.compress(g) for g in grads],
-                                average=average, prefix=ps_prefix)
-        else:
-            wire = bps._group_reduce(grads, average, compression)
-        return [compression.decompress(g, d) for g, d in zip(wire, dtypes)]
-
     def step(model_or_params, batch) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model_or_params, batch)
         loss.backward()
         live = [p for p in params if p.grad is not None]
-        for p, g in zip(live, reduce([p.grad for p in live])):
+        for p, g in zip(live, bps.push_pull(
+                [p.grad for p in live], average=average, name=ps_prefix,
+                compression=compression)):
             p.grad = g
         optimizer.step()
         loss = loss.detach()

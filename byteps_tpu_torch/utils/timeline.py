@@ -55,17 +55,11 @@ innermost host span open at its middle. This is a lower bound of the
 card's idle time: it sees nothing inside the forward pass or the
 backward, where the program has no marks.
 
-A record may also carry counters: ``bn_launches``, the batch-norm kernel
-entries the step called (``ops.batch_norm``: a forward and a backward a
-norm of a training step); ``moe_rows``, the (token, expert) pairs the
-step's expert layers routed to the experts held here
-(``models.deepseek``), summed on the card as the step runs and read once
-the trace stops; ``head_pad_rows``, the zero rows the step's tied heads
-appended to their tables (``models.transformer`` ``Embed.attend``: 47 a
-GPT-2 step, absent where the vocabulary is a multiple of 64). The expert
-layers also mark the card around each layer's forward
-(``moe_fwd_start``, ``moe_fwd_end``) and backward (``moe_bwd_start``,
-``moe_bwd_end``), the layer's index as the leaf.
+A layer above may also add counters to the current record
+(``add_count``: a number, or a tensor on the card summed there as the
+step runs and read once the trace stops) and card marks of its own
+(``mark``, with a leaf of its choosing); each is named and documented
+where it is added.
 """
 
 from __future__ import annotations

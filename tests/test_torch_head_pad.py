@@ -4,10 +4,9 @@ padded with zero rows before the product and the logits are sliced back.
 
 On the CPU the padded product gives the unpadded one's logits, the
 table's gradient and ``lm_loss`` with its gradients bit for bit; an
-aligned vocabulary takes the product as it is; the step trace counts the
-appended rows as ``head_pad_rows``. The ``cuda`` test holds the padded
-head at GPT-2 small's width to the unpadded one on the card and checks
-that no product of it runs on cuBLAS's sm75 fallback.
+aligned vocabulary takes the product as it is. The ``cuda`` test holds
+the padded head at GPT-2 small's width to the unpadded one on the card
+and checks that no product of it runs on cuBLAS's sm75 fallback.
 
 This file imports torch and the port only (no JAX), so its ``cuda`` test
 also runs on a GPU machine without JAX:
@@ -18,24 +17,18 @@ also runs on a GPU machine without JAX:
 import pytest
 import torch
 
-import byteps_tpu_torch as bps
 from byteps_tpu_torch.models import transformer
 from byteps_tpu_torch.models.transformer import (Embed, TransformerLM,
                                                  lm_loss)
-from byteps_tpu_torch.utils import timeline
 
 
 @pytest.fixture(autouse=True)
-def _one_thread(monkeypatch):
+def _one_thread():
     # one intra-op thread: the other test workers need the cores more, and
     # the products then sum in one order
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    monkeypatch.setenv("BYTEPS_PS_MODE", "collective")
     yield
-    timeline.steps = None  # a test that failed mid-trace leaves none
-    if bps.initialized():
-        bps.shutdown()
     torch.set_num_threads(threads)
 
 
@@ -130,50 +123,15 @@ def test_lm_loss_and_its_gradients_match(monkeypatch, dtype):
         assert torch.equal(grads[name], grads_want[name]), name
 
 
-def _traced_steps(model, vocab, n=2):
-    """``n`` steps of ``model`` through the ``DistributedOptimizer`` under
-    a step trace: the trace's records."""
-    bps.init(device="cpu")
-    opt = bps.DistributedOptimizer(
-        torch.optim.AdamW(model.parameters(), lr=1e-3),
-        named_parameters=model.named_parameters())
-
-    def step(tokens):
-        opt.zero_grad()
-        lm_loss(model(tokens), tokens).backward()
-        opt.step()
-
-    step(_tokens(vocab, seed=10))  # tracing off
-    timeline.start_steps()
-    try:
-        for i in range(n):
-            step(_tokens(vocab, seed=11 + i))
-    finally:
-        out = timeline.stop_steps()
-    assert len(out["records"]) == n
-    return out["records"]
-
-
 @pytest.mark.parametrize("vocab", [32000, 1024])
 def test_an_aligned_vocabulary_is_not_padded(vocab):
     """At a multiple of 64 rows (Llama's 32000, 1024) ``attend`` is the
-    plain product, a whole tensor, and a traced step counts no
-    ``head_pad_rows``."""
+    plain product, a whole tensor."""
     head = _head(vocab, 16)
     x = torch.randn(2, 8, 16, generator=torch.Generator().manual_seed(1))
     got = head.attend(x)
     assert got.is_contiguous() and got.shape == (2, 8, vocab)
     assert torch.equal(got, _unpadded(head, x))
-    records = _traced_steps(_lm(vocab), vocab)
-    assert all("head_pad_rows" not in r for r in records)
-
-
-def test_a_traced_gpt2_step_counts_the_pad():
-    """A GPT-2-vocabulary step under the step trace: its record's
-    ``head_pad_rows`` is the 47 rows appended to the 50257-row table,
-    once a step."""
-    records = _traced_steps(_lm(50257), 50257)
-    assert [r["head_pad_rows"] for r in records] == [47, 47]
 
 
 def _card():

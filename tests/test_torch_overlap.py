@@ -510,7 +510,8 @@ def test_failed_wait_settles_every_handle_then_next_step_is_clean(
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
 
 
-@pytest.mark.parametrize("path", ["overlap_f32", "bucketed_multi"])
+@pytest.mark.parametrize("path", ["overlap_f32", "bucketed_multi",
+                                  "bucketed_single"])
 def test_backward_that_fails_midway_leaves_the_next_step_clean(monkeypatch,
                                                                path):
     """A backward that raises after some hooks fired (here a hook of the
