@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from byteps_tpu_torch.ops import moe_rows
 from byteps_tpu_torch.parallel._collectives import (Group, all_to_all,
                                                     group_rank, group_size,
                                                     pmean)
@@ -288,12 +289,26 @@ def _routed(x, src, held, weight, pos, mine, offs, w1, w2):
     the held experts' rows, then each token's k rows back in token order,
     summed. Rows past the held pairs are zero in both directions, whatever
     the products leave there, and no row is added into twice but a
-    token's own k."""
+    token's own k. Every pass covers all T k rows: the plain reference
+    that the tests hold ``_routed_rows`` to, on the CPU and the card."""
     t, d = x.shape
     xs = torch.where(held[:, None], x[src], 0.0)
     y = grouped_swiglu(xs, w1, w2, offs, weight)
     back = torch.where(mine[:, None], y[pos], 0.0)
     return back.view(t, -1, d).sum(1)
+
+
+def _routed_rows(x, src, held, weight, pos, mine, offs, w1, w2):
+    """``_routed`` through ``ops.moe_rows``, whose kernels walk only the
+    held rows (below offs[-1], read on the card) and whose plain versions
+    run for CPU tensors: the same arguments (``held`` unused) and
+    function. No row past the held pairs is read, so what the products
+    leave there reaches nothing."""
+    k = src.numel() // x.shape[0]
+    xs = moe_rows.gather_rows(x, src, pos, mine, offs)
+    a = moe_rows.swiglu_rows(_grouped(xs, w1, offs), weight, offs)
+    return moe_rows.combine_rows(_grouped(a, w2, offs), pos, mine, src,
+                                 offs, k)
 
 
 def _init(shape, fan_in, generator):
@@ -315,7 +330,10 @@ class RoutedExperts(nn.Module):
     the backward: their buffers are sized for the worst case (every pair
     routed here, T k rows, since the count stays on the device), so
     keeping them for every layer would hold n_experts / held times the
-    rows an even routing needs."""
+    rows an even routing needs. The row passes around the products are
+    ``ops.moe_rows``' (``_routed_rows``): on a CUDA device its kernels,
+    which touch only the held rows, so the recompute costs the held rows'
+    work; on the CPU their plain versions."""
 
     def __init__(self, d_model: int, dim: int, n_experts: int, lo: int,
                  hi: int, dtype: torch.dtype = torch.bfloat16,
@@ -339,6 +357,6 @@ class RoutedExperts(nn.Module):
         args = (x.to(self.dtype), plan.src, plan.held, plan.weight,
                 plan.pos, plan.mine, plan.offs, self.w1, self.w2)
         if torch.is_grad_enabled():
-            return checkpoint(_routed, *args, use_reentrant=False,
+            return checkpoint(_routed_rows, *args, use_reentrant=False,
                               preserve_rng_state=False)
-        return _routed(*args)
+        return _routed_rows(*args)

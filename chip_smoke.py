@@ -5,9 +5,9 @@
 
 Phases, each of which raises on failure:
 
-1. build: the flash-attention and batch-norm kernels (nvcc, sm_90a) and
-   the C++ PS core (g++), all from this checkout's sources, in parallel, into
-   build/byteps_tpu_torch/; the SASS of each instantiation of the
+1. build: the flash-attention, batch-norm and expert-row kernels (nvcc,
+   sm_90a) and the C++ PS core (g++), all from this checkout's sources, in
+   parallel, into build/byteps_tpu_torch/; the SASS of each instantiation of the
    tensor-core kernels (bf16/f16 and f32 forward, dQ, dK/dV; in f32 three
    TF32 products a product) must hold HGMMA (wgmma) instructions;
 2. kernels: each of the four CUDA kernels against its plain PyTorch
@@ -27,6 +27,13 @@ Phases, each of which raises on failure:
    the batch-norm kernels (see ``batch_norm_phase``) at each shape of
    ResNet-50's 53 norms (batch 256, bf16), checked against the plain
    version run in f32 and timed in turns with it, summed over the norms;
+   then the expert row kernels (see ``moe_rows_phase``) at
+   Moonlight-16B-A3B's expert layer (T 32768, d 2048, f 1408, k 6, 8 of
+   64 experts held, bf16) at 24,576 and 12,288 held rows: each forward
+   and backward against its plain version run in f32, timed in turns
+   with ``_routed``'s PyTorch passes over all T k rows beside its bytes
+   bound, and one ``RoutedExperts`` forward and backward entering them 9
+   times;
 3. collective mode: GPT2Small(attn_impl="flash") at full width trains a
    few steps of 8 x 512 tokens through init -> make_train_step with
    AdamW, then runs one evaluation forward under no_grad; the launch
@@ -213,6 +220,8 @@ def build_all():
             "flash_attention.cu", lambda: _cuda_lib.build("flash_attention"))),
         threading.Thread(target=run, args=(
             "batch_norm.cu", lambda: _cuda_lib.build("batch_norm"))),
+        threading.Thread(target=run, args=(
+            "moe_rows.cu", lambda: _cuda_lib.build("moe_rows"))),
         threading.Thread(target=run, args=(
             "libbyteps_core", lambda: core_build.build(verbose=False))),
     ]
@@ -899,6 +908,240 @@ def batch_norm_phase():
                                         / totals[f"fused_{way}"])
     log("batch norm, ResNet-50's 53 norms summed (ms):", json.dumps(totals))
     return {"shapes": shapes, "summed_ms": totals}
+
+
+# --- phase 2 (c): the expert row kernels at Moonlight's expert layer ---------
+
+# Moonlight-16B-A3B's expert layer (portbench/configs/moonlight-16b-a3b.json)
+# at moonlight-coll's 4 x 8192 tokens: experts 0-7 of 64 held
+MOE_T, MOE_D, MOE_F, MOE_K, MOE_EXPERTS, MOE_HELD = 32768, 2048, 1408, 6, 64, 8
+# held pairs: step 1's ~3072 an expert, and about later steps' mean
+MOE_ROWS = (24576, 12288)
+
+
+def _moe_rows_plan(rows, gen):
+    """(x, route weights, idx, plan) of Moonlight's expert layer on the
+    card, bf16, with exactly ``rows`` of the T k pairs on the held
+    experts, Zipf-skewed (weights 1 / (e + 1)) among them; the other
+    pairs on experts 8-63; a token's experts distinct."""
+    import torch
+
+    from byteps_tpu_torch.parallel import moe
+    t, k, held = MOE_T, MOE_K, MOE_HELD
+    on = torch.zeros(t * k, dtype=torch.bool)
+    on[torch.randperm(t * k, generator=gen)[:rows]] = True
+    zipf = 1.0 / torch.arange(1, held + 1, dtype=torch.float64)
+    mine = torch.multinomial(zipf.expand(t, held), k, generator=gen)
+    rest = held + torch.multinomial(torch.ones(t, MOE_EXPERTS - held), k,
+                                    generator=gen)
+    idx = torch.where(on.view(t, k), mine, rest).cuda()
+    gates = torch.rand(t, k, generator=gen) + 0.1
+    weights = (gates / gates.sum(-1, keepdim=True) * 2.446).cuda()
+    x = torch.randn(t, MOE_D, generator=gen).to("cuda", torch.bfloat16)
+    plan = moe.expert_plan(idx, weights, 0, held)
+    if int(plan.rows) != rows:
+        raise AssertionError(f"plan holds {int(plan.rows)} rows, not {rows}")
+    return x, weights, idx, plan
+
+
+def _moe_rows_bound_ms(rows):
+    """{pass: (forward, backward)} least ms over ``rows`` held rows of bf16:
+    each byte the held rows need read once and each output byte written
+    once, over HBM_BPS. The combine reads every pair's pos and mine, and
+    writes every token; the SwiGLU backward writes every pair's dweight."""
+    pairs, e = MOE_T * MOE_K, 2
+    gather = rows * MOE_D * e * 2 + rows * 8
+    combine = rows * MOE_D * e + pairs * 9 + MOE_T * MOE_D * e
+    swiglu = rows * 3 * MOE_F * e + rows * 4
+    swiglu_bwd = rows * 5 * MOE_F * e + rows * 4 + pairs * 4
+    ms = 1e3 / HBM_BPS
+    return {"gather": (gather * ms, combine * ms),
+            "swiglu": (swiglu * ms, swiglu_bwd * ms),
+            "combine": (combine * ms, gather * ms)}
+
+
+def _moe_rows_inputs(x, weights, plan, gen):
+    """The passes' leaves and output gradients at ``plan``: rows of the
+    product outputs (h, y) and of their gradients (dxs, da) from offs[-1]
+    on are NaN, as ``torch._grouped_mm`` may leave them."""
+    import torch
+    p, rows = plan.src.numel(), int(plan.rows)
+
+    def rand(*shape, scale=1.0, unset=True):
+        t = (torch.randn(shape, generator=gen, device="cuda")
+             * scale).bfloat16()
+        if unset:
+            t[rows:] = float("nan")
+        return t
+    leaf = {"x": x.detach().clone().requires_grad_(),
+            "h": rand(p, 2 * MOE_F, scale=3.0).requires_grad_(),
+            "w": plan.weight.detach().clone().requires_grad_(),
+            "y": rand(p, MOE_D).requires_grad_()}
+    grads = {"gather": rand(p, MOE_D), "swiglu": rand(p, MOE_F),
+             "combine": rand(MOE_T, MOE_D, unset=False)}
+    return leaf, grads
+
+
+def _moe_rows_passes(mr, leaf, plan):
+    """{pass: (kernels' function, ``_routed``'s PyTorch pass over all T k
+    rows, names of its leaves)}."""
+    import torch
+    import torch.nn.functional as nnf
+
+    def routed_swiglu():
+        gate, up = leaf["h"].chunk(2, dim=-1)
+        return nnf.silu(gate) * up * leaf["w"][:, None].bfloat16()
+    return {
+        "gather": (lambda: mr.gather_rows(leaf["x"], plan.src, plan.pos,
+                                          plan.mine, plan.offs),
+                   lambda: torch.where(plan.held[:, None],
+                                       leaf["x"][plan.src], 0.0), ("x",)),
+        "swiglu": (lambda: mr.swiglu_rows(leaf["h"], leaf["w"], plan.offs),
+                   routed_swiglu, ("h", "w")),
+        "combine": (lambda: mr.combine_rows(leaf["y"], plan.pos, plan.mine,
+                                            plan.src, plan.offs, MOE_K),
+                    lambda: torch.where(plan.mine[:, None],
+                                        leaf["y"][plan.pos], 0.0).view(
+                        MOE_T, MOE_K, MOE_D).sum(1), ("y",))}
+
+
+def _moe_rows_check(mr, leaf, grads, plan):
+    """{output: (max |kernel - plain|, max err / bn_bound)} of each
+    kernel's forward and backward against its plain version run in f32 on
+    the same inputs; the gathers must equal their rows."""
+    import torch
+    import torch.nn.functional as nnf
+    rows, pos, mine, offs = int(plan.rows), plan.pos, plan.mine, plan.offs
+    x, h, w, y = leaf["x"], leaf["h"], leaf["w"], leaf["y"]
+    dxs, da, dout = grads["gather"], grads["swiglu"], grads["combine"]
+    xs = mr.gather_rows(x, plan.src, pos, mine, offs)
+    (dx,) = torch.autograd.grad(xs, x, dxs)
+    a = mr.swiglu_rows(h, w, offs)
+    dh, dw = torch.autograd.grad(a, (h, w), da)
+    out = mr.combine_rows(y, pos, mine, plan.src, offs, MOE_K)
+    (dy,) = torch.autograd.grad(out, y, dout)
+    hf, wf = h.detach().float(), w.detach()
+    g, u = hf[:rows].chunk(2, dim=-1)
+    dh_want, dw_want = mr.swiglu_backward_plain(hf, wf, da.float(), offs)
+    yf = y.detach().float()
+    cases = {  # got, want, mag (None: the largest |want|), dtype
+        "gather": (xs[:rows], x.detach()[plan.src[:rows]], None, None),
+        "gather_bwd": (dx, mr.combine_plain(dxs.float(), pos, mine, MOE_K),
+                       mr.combine_plain(dxs.float().abs(), pos, mine, MOE_K),
+                       torch.bfloat16),
+        "swiglu": (a[:rows], mr.swiglu_plain(hf, wf, offs)[:rows], None,
+                   torch.bfloat16),
+        "swiglu_bwd_dh": (dh[:rows], dh_want[:rows], None, torch.bfloat16),
+        "swiglu_bwd_dweight": (dw[:rows], dw_want[:rows],
+                               (da[:rows].float() * nnf.silu(g) * u).abs()
+                               .sum(-1), torch.float32),
+        "combine": (out, mr.combine_plain(yf, pos, mine, MOE_K),
+                    mr.combine_plain(yf.abs(), pos, mine, MOE_K),
+                    torch.bfloat16),
+        "combine_bwd": (dy[:rows], dout[plan.src[:rows]], None, None)}
+    result, failures = {}, []
+    for what, (got, want, mag, dt) in cases.items():
+        err = (got.double() - want.double()).abs()
+        ratio = (0.0 if dt is None and torch.equal(got, want)
+                 else float("inf") if dt is None
+                 else (err / bn_bound(dt, want, mag)).max().item())
+        result[what] = (err.max().item(), ratio)
+        if not (bool(torch.isfinite(got).all()) and ratio <= 1.0):
+            failures.append(f"{what}: max |err| {err.max().item():.3g}, "
+                            f"err/bound {ratio:.3f}")
+    if dw[rows:].any():
+        failures.append("swiglu_bwd_dweight: not 0 past the held rows")
+    return result, failures
+
+
+def _moe_rows_launches(mr, moe, x, weights, idx):
+    """LAUNCHES and the step records' ``moe_row_launches`` of one
+    ``RoutedExperts`` forward and backward on the card (its checkpoint's
+    recompute included), counted from 0 just before."""
+    import torch
+
+    from byteps_tpu_torch.utils import timeline
+    experts = moe.RoutedExperts(MOE_D, MOE_F, MOE_EXPERTS, 0,
+                                MOE_HELD).cuda()
+    xl = x.detach().clone().requires_grad_()
+    wl = weights.detach().clone().requires_grad_()
+    mr.reset_launches()
+    timeline.start_steps()
+    try:
+        rec = timeline.steps.open()
+        timeline.add_span(rec, "zero_grad", 0.0, 0.0)
+        out = experts(xl, moe.expert_plan(idx, wl, 0, MOE_HELD))
+        grads = torch.autograd.grad(out, (xl, wl, experts.w1, experts.w2),
+                                    torch.ones_like(out))
+        torch.cuda.synchronize()
+    finally:
+        trace = timeline.stop_steps()
+    if not all(bool(torch.isfinite(t).all()) for t in (out, *grads)):
+        raise AssertionError("RoutedExperts on the card: not finite")
+    return dict(mr.LAUNCHES), [r.get("moe_row_launches", 0)
+                               for r in trace["records"]]
+
+
+def moe_rows_phase():
+    """The expert row kernels (``ops.moe_rows``) at Moonlight-16B-A3B's
+    expert layer (T 32768, d 2048, f 1408, k 6, experts 0-7 of 64 held,
+    bf16, Zipf-skewed choices; ``_moe_rows_plan``) at each count of held rows
+    in MOE_ROWS. Each of ``gather_rows``, ``swiglu_rows`` and
+    ``combine_rows`` forward and backward against its plain version run
+    in f32 (``bn_bound``; the gathers equal), with the unset rows of the
+    products and their gradients NaN; each timed in turns with
+    ``_routed``'s PyTorch pass over all T k rows, forward and forward
+    with backward (CUDA graphs, 5 windows), beside its bytes bound
+    (``_moe_rows_bound_ms``). Then one ``RoutedExperts`` forward and backward
+    must enter the kernels 9 times (forward, the checkpoint's recompute
+    and backward, 3 each), in LAUNCHES and in the step record's
+    ``moe_row_launches``."""
+    import torch
+
+    mr = importlib.import_module("byteps_tpu_torch.ops.moe_rows")
+    moe = importlib.import_module("byteps_tpu_torch.parallel.moe")
+    failures, by_rows, errors = [], {}, {}
+    for rows in MOE_ROWS:
+        gen = torch.Generator().manual_seed(rows)
+        x, weights, idx, plan = _moe_rows_plan(rows, gen)
+        leaf, grads = _moe_rows_inputs(x, weights, plan, torch.Generator(
+            device="cuda").manual_seed(rows))
+        errors[rows], bad = _moe_rows_check(mr, leaf, grads, plan)
+        failures += [f"rows {rows}, {b}" for b in bad]
+        timed = {}
+        for name, (kern, plain, ins) in _moe_rows_passes(mr, leaf,
+                                                         plan).items():
+            args, g = [leaf[i] for i in ins], grads[name]
+            timed[name] = _time_alternating({
+                "kernel_fwd": lambda kern=kern: kern().detach(),
+                "kernel_fwd_bwd": lambda kern=kern, args=args, g=g:
+                    torch.autograd.grad(kern(), args, g),
+                "routed_fwd": lambda plain=plain: plain().detach(),
+                "routed_fwd_bwd": lambda plain=plain, args=args, g=g:
+                    torch.autograd.grad(plain(), args, g)})
+        by_rows[rows] = {
+            name: {**{k: v[0] for k, v in t.items()},
+                   "bound_fwd": _moe_rows_bound_ms(rows)[name][0],
+                   "bound_fwd_bwd": sum(_moe_rows_bound_ms(rows)[name])}
+            for name, t in timed.items()}
+        log(f"expert rows, {rows} held of {MOE_T * MOE_K} (ms; max |err|, "
+            f"err/bound):", json.dumps({"ms": by_rows[rows],
+                                        "errors": errors[rows]}))
+        if rows == MOE_ROWS[0]:
+            launches, traced = _moe_rows_launches(mr, moe, x, weights, idx)
+        del x, weights, idx, plan, leaf, grads
+        torch.cuda.empty_cache()
+    want = {"gather": 3, "combine": 3, "swiglu": 2, "swiglu_backward": 1}
+    if launches != want or traced != [9]:
+        failures.append(f"RoutedExperts entered the kernels {launches}, "
+                        f"traced {traced}; want {want}, [9]")
+    if failures:
+        raise AssertionError("expert row kernels failed:\n"
+                             + "\n".join(failures))
+    log("expert rows, RoutedExperts forward and backward launches:",
+        json.dumps(launches))
+    return {"launches": launches, "traced_launches": traced,
+            "errors": errors, "ms": by_rows}
 
 
 # --- phases 3 and 4: the main path -------------------------------------------
@@ -4423,6 +4666,7 @@ def main() -> int:
     sass = tensor_core_sass()
     errors, timing = kernel_phase()
     norms = batch_norm_phase()
+    moe_rows = moe_rows_phase()
     reference, reference_cases = reference_phase()
     coll_losses, coll_times, coll_launches, profile = collective_phase()
     # phase 9 runs here, while this process holds little of the card: its
@@ -4492,6 +4736,7 @@ def main() -> int:
         "kernel_readings": timing["readings"],
         "kernel_reference_ratios": reference_cases,
         "batch_norm": norms,
+        "moe_rows": moe_rows,
     }
     log("PS paths, median of steps 2-4 (ms; plain_alone: the plain step "
         "before the others, plain: in turns with them; their D2H / core / "
@@ -4565,6 +4810,17 @@ def main() -> int:
         "replaces": None,
         "launches": images["resnet50"]["collective"]["bn_launches"],
         **norms["summed_ms"]})
+    kernels.append({
+        "name": "moe_rows (moe_gather_kernel, moe_combine_kernel, "
+                "moe_swiglu_kernel | moe_swiglu_bwd_kernel)",
+        "route": "cuda", "source": "byteps_tpu_torch/csrc/moe_rows.cu",
+        "replaces": None,
+        # one RoutedExperts forward and backward at Moonlight's layer
+        "launches": moe_rows["launches"],
+        "max_abs_err": {what: e[0] for what, e in
+                        moe_rows["errors"][MOE_ROWS[0]].items()},
+        # {held rows: {pass: kernel and plain ms, bytes bound_ms}}
+        "ms": moe_rows["ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
