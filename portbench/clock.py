@@ -1,14 +1,17 @@
 """The card's clock: its own time for a step, whether it waited for the
-host, and device time of captured kernels.
+host, its busy time over a window, and device time of captured kernels.
 
 ``card_backlog`` and ``time_alternating`` are frozen copies of
 ``chip_smoke.py``'s ``_card_backlog`` and ``_time_alternating``;
-``Anchors`` puts events of a window on the host's clock. None of them
-uses ``torch.profiler``, which loses device records on this card.
+``Anchors`` puts events of a window on the host's clock;
+``window_busy`` reads the card's busy seconds in a window from its span
+of each step. None of them uses ``torch.profiler``, which loses device
+records on this card.
 """
 
 from __future__ import annotations
 
+import statistics
 import threading
 import time
 
@@ -142,3 +145,66 @@ def on_host(h0: float, h1: float, card_ms: float, ev_ms: float) -> float:
     card's clock, where the anchors were enqueued at host times ``h0`` and
     ``h1`` and lie ``card_ms`` apart on the card's clock."""
     return h0 + ev_ms / 1e3 * (h1 - h0) / (card_ms / 1e3)
+
+
+def clipped(intervals, lo: float, hi: float) -> float:
+    """The seconds of ``intervals`` ((start, end) pairs, disjoint) that lie
+    inside [``lo``, ``hi``]; an interval that ends before it starts has
+    none."""
+    return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in intervals)
+
+
+def window_busy(steps, paced_idle_s: float, lo: float, hi: float) -> dict:
+    """The card's busy seconds in the window [``lo``, ``hi``] from its span
+    of each of the window's steps, all on the host's clock: ``steps``
+    holds (start, backward, resume, end) a step, when the card reached
+    the step's start, finished its backward, could resume after the
+    round trip (the host's ``landed``, where that is later than the end
+    of backward), and finished its update. Each step is busy from its
+    start plus ``paced_idle_s`` (the idle that the host's pace leaves in
+    a zero_grad, forward and backward, ``paced_idle``) to the end
+    of its backward, and from its resumption to its end; between steps
+    (the loss read, the host's work up to the next step) the card is
+    idle. The intervals are disjoint and cut to the window, so 0 <=
+    ``busy_s`` <= ``hi`` - ``lo`` by construction; a step whose start,
+    end of backward and end are out of order is refused. ``busy_s_upper``:
+    the steps' whole spans, nothing taken out."""
+    busy, spans = [], []
+    for i, (start, bwd, resume, end) in enumerate(steps):
+        if not start <= bwd <= end or not bwd <= resume:
+            raise ValueError(f"step {i}: the card's start {start}, end of "
+                             f"backward {bwd}, resumption {resume} and end "
+                             f"{end} are out of order")
+        busy += [(start + paced_idle_s, bwd), (resume, end)]
+        spans.append((start, end))
+    return {"busy_s": clipped(busy, lo, hi),
+            "busy_s_upper": clipped(spans, lo, hi)}
+
+
+def paced_idle(pairs, window_ms) -> dict:
+    """The idle ms that the host's pace leaves in a step's zero_grad,
+    forward and backward, the card idle at its start: ``pairs``, the same
+    work timed as the window runs it (``paced_ms``) and as the card's own
+    time behind a sleep (``own_ms``), on a few batches after the window
+    (``trace.paced_pairs``); ``window_ms``, the card's span of that part
+    (start to end of backward) in each of the window's steps. Two
+    estimates: the pairs' mean of paced less own, whose standard error
+    is their spread over the root of their count; and the window's mean
+    span less the pairs' mean own time, which has every step of the
+    window but stands on the window's work being the pairs': the window's
+    batches ran at another point of the run, so its error counts as one
+    more batch's own time, the pairs' spread of it times the root of
+    (1 + 1 / pairs). The window's wins where the work is even and the
+    host's pace swings (GPT-2, the PS cell), the pairs' where the work
+    swings from batch to batch (an expert layer's rows). ``ms`` is the
+    one with the smaller error, and 0 where that reads under 0."""
+    k = len(pairs)
+    diff = [p["paced_ms"] - p["own_ms"] for p in pairs]
+    own = [p["own_ms"] for p in pairs]
+    by_pairs = (statistics.fmean(diff), statistics.stdev(diff) / k ** 0.5)
+    by_window = (statistics.fmean(window_ms) - statistics.fmean(own),
+                 statistics.stdev(own) * (1 + 1 / k) ** 0.5)
+    est = min(by_pairs, by_window, key=lambda e: e[1])[0]
+    return {"ms": max(0.0, est), "by_pairs_ms": by_pairs[0],
+            "by_pairs_se_ms": by_pairs[1], "by_window_ms": by_window[0],
+            "by_window_se_ms": by_window[1]}

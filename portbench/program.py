@@ -68,8 +68,9 @@ class Program:
             raise ValueError(f"unknown fault {fault!r}")
         self.ps = cell.traffic["mode"] == "ps"
         self.steps = 0
-        # traced: each step records an event after ``backward()`` returns
-        self.mark_backward = False
+        # traced: each step records an event on the card at its start,
+        # after ``backward()`` returns and after ``step()`` returns
+        self.mark = False
 
     def next_batch(self):
         batch = self.pool[self.steps % len(self.pool)]
@@ -85,22 +86,28 @@ class Program:
         ``timings``."""
         batch = self.next_batch()
         t = {"start": time.perf_counter()}
+        self._mark(t, "start_event")
         self.opt.zero_grad()
         loss = self.loss_fn(self.model, batch)
         t["fwd_end"] = time.perf_counter()
         loss.backward()
         t["bwd_end"] = time.perf_counter()
-        if self.mark_backward:
-            # the card's end of backward, read after the window
-            t["bwd_event"] = torch.cuda.Event(enable_timing=True)
-            t["bwd_event"].record()
+        self._mark(t, "bwd_event")
         self.opt.step()
         t["opt_end"] = time.perf_counter()
+        self._mark(t, "end_event")
         t["loss"] = loss.item() if sync else loss.detach()
         t["end"] = time.perf_counter()
         t["timings"] = getattr(self.opt, "timings", {})
         t["samples"] = self.inputs.samples(batch)
         return t
+
+    def _mark(self, t: dict, name: str):
+        """With ``mark``, an event recorded now, read after the window:
+        where the card is in the step."""
+        if self.mark:
+            t[name] = torch.cuda.Event(enable_timing=True)
+            t[name].record()
 
     def first_steps(self, n: int = 3) -> dict:
         """The first ``n`` steps, the ones the reference follows: each

@@ -72,7 +72,7 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0=_T0,
 
     import byteps_tpu_torch as bps
     from portbench import check, trace
-    from portbench.clock import Anchors
+    from portbench.clock import Anchors, paced_idle, window_busy
     from portbench.fleet import fleet
     from portbench.program import Program
     from portbench.stats import percentile
@@ -108,9 +108,12 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0=_T0,
                        "setup_s": setup_s}
                 log(f"{len(steps)} steps in {window_s} s; step ms median "
                     f"{percentile(ms, 50)} p90 {percentile(ms, 90)}")
-                out["metrics"] = {m["name"]: {"value": e2e[m["name"]],
-                                              "unit": m["unit"]}
-                                  for m in cell.end_to_end}
+                # ``<quantity>.<group>`` (``samples_per_s.ps``) is the
+                # quantity, in the cells that the manifest lists for it,
+                # under a bound of its own
+                out["metrics"] = {m["name"]: {
+                    "value": e2e[m["name"].partition(".")[0]],
+                    "unit": m["unit"]} for m in cell.end_to_end}
             else:
                 torch.cuda.reset_peak_memory_stats()
                 rec = {"cell": cell, "seed": seed, "live": prog, "log": log}
@@ -118,25 +121,44 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0=_T0,
                 if ps:
                     rec["van_start"] = trace.van_bytes()
                 anchors = Anchors()
-                prog.mark_backward = True
+                prog.mark = True
                 anchors.start()
                 steps, window_s = _window(prog, seconds, sync, van)
                 anchors.stop()
-                prog.mark_backward = False
+                prog.mark = False
+                card = []  # (start, backward, resume, end) on the host
                 for s in steps:
                     s["bwd_card"] = anchors.on_host(s.pop("bwd_event"))
+                    landed = s["timings"].get("landed", s["bwd_card"])
+                    card.append((anchors.on_host(s.pop("start_event")),
+                                 s["bwd_card"], max(s["bwd_card"], landed),
+                                 anchors.on_host(s.pop("end_event"))))
                 rec.update(steps=steps, window_s=window_s,
                            peak_bytes=torch.cuda.max_memory_allocated())
                 log(f"{len(steps)} traced steps in {window_s} s")
                 out["metrics"] = trace.read_metrics(rec, cell.per_layer, log)
                 out["breakdown"] = trace.breakdown(rec, log)
-                # Not read over the window: the profiler loses device
-                # records on this card. The card's busy time for one step,
-                # exact behind a sleep after the window, times its steps.
-                busy_ms = trace.card_busy(rec)["ms"]
-                out["device"].update(busy_s=busy_ms / 1e3 * len(steps),
-                                     window_s=window_s,
-                                     busy_ms_per_step=busy_ms)
+                # Read over the window's own steps, from its first step's
+                # start: the card's span of each step (events at its start,
+                # after backward() and after step()), less the PS round
+                # trip's wait and the idle the host's pace leaves in a
+                # forward and backward (``clock.paced_idle``), the card
+                # idle between steps (``clock.window_busy``). Beside it
+                # ``busy_s_probe``: one probe step's card time after the
+                # window (``trace.card_busy``) times the window's steps.
+                paced = paced_idle(trace.paced_pairs(rec), [
+                    (b - a) * 1e3 for a, b, _, _ in card])
+                log("paced idle: " + json.dumps(paced))
+                opened = steps[0]["start"]
+                busy = window_busy(card, paced["ms"] / 1e3, opened,
+                                   opened + window_s)
+                busy["busy_s_probe"] = (trace.card_busy(rec)["ms"] / 1e3
+                                        * len(steps))
+                busy["paced_idle_ms"] = paced["ms"]
+                log("card busy over the window: " + json.dumps(
+                    dict(busy, window_s=window_s)))
+                out["device"].update(busy_s=busy.pop("busy_s"),
+                                     window_s=window_s, **busy)
                 rec.clear()  # it holds the program
             sync()
             if on_card:

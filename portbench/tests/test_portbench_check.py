@@ -81,6 +81,8 @@ def test_a_run_is_correct_unless_its_step_is_broken(name, fault, dtype,
     assert out["correct"] is (not fault), out["check"]
     assert out["attempted"] >= 1 and out["failed"] == 0
     assert list(out["check"]) == list(c.limits)
+    assert list(out["metrics"]) == [m["name"] for m in c.end_to_end]
+    assert all(v["value"] > 0 for v in out["metrics"].values()), out
     if fault == "no_round_trip":
         # the training numbers cannot tell: with one worker the pull is
         # the push; the wire can

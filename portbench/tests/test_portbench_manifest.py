@@ -95,9 +95,16 @@ def test_bounds():
 
 def test_per_layer_metrics_name_their_cells_and_moves():
     e2e = {m["name"] for m in BENCH["end_to_end"]}
+    reports = {c: {m["name"] for m in BENCH["end_to_end"]
+                   if c in m.get("workloads", CELLS)} for c in CELLS}
+    for m in BENCH["end_to_end"]:
+        assert set(m.get("workloads", CELLS)) <= set(CELLS), m
     for m in BENCH["per_layer"]:
         assert m["moves"] in e2e
         assert set(m.get("workloads", CELLS)) <= set(CELLS)
+        # each cell it lists reports the metric it moves
+        assert all(m["moves"] in reports[c]
+                   for c in m.get("workloads", CELLS)), m
         if m["name"].endswith("_roofline") or "mfu" in m["name"]:
             assert m["unit"] == "%"
 

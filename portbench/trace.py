@@ -7,6 +7,14 @@ card's end of backward on the host's clock, and the optimizer's
 memory of the window, the cell, and ``live``, the program as the window
 left it, for the readers that measure something of their own once the
 window has closed (``probe``).
+
+The result line's ``busy_s`` is not derived from ``card_busy``: it is
+read over the window's own steps, from the card's span of each
+(``clock.window_busy``), less the idle the host's pace leaves in a step
+(``clock.paced_idle`` over ``paced_pairs``). ``card_busy``, one probe
+step after the window, still gives ``card_step_ms``,
+``device_idle_pct``, the profiler's coverage in ``breakdown`` and the
+``busy_s_probe`` kept beside ``busy_s``.
 """
 
 from __future__ import annotations
@@ -43,7 +51,9 @@ def card_busy(rec: dict) -> dict:
     the step waits for between the two (the PS round trip) is left out,
     and so are the PS cells' copies between card and host, which run on
     a stream of their own. ``ms`` is the sum; each part says whether it
-    is exact."""
+    is exact. A probe of one step, on the pool's next batch after the
+    window: no longer the window's ``busy_s``, which can differ from it
+    where steps are uneven (an expert layer's rows swing)."""
     def measure():
         from portbench.clock import card_backlog
         live, held = rec["live"], {}
@@ -59,6 +69,51 @@ def card_busy(rec: dict) -> dict:
         return {"compute": compute, "update": update,
                 "ms": compute["device_ms"] + update["device_ms"]}
     return probe(rec, "card_busy", measure)
+
+
+# pairs that ``paced_pairs`` times
+PACED_PAIRS = 8
+
+
+def paced_pairs(rec: dict) -> list:
+    """A step's zero_grad, forward and backward run twice on each of
+    PACED_PAIRS batches: once as the window runs it, the card idle at its
+    start (``paced_ms``, CUDA events at its start and after
+    ``backward()``), and once behind a sleep of the card
+    (``clock.card_backlog``: ``own_ms``, the card's own time, exact where
+    the card never waited). The model's buffers (the routers' biases and
+    loads, the norms' statistics) are put back between the two, so both
+    run the same work."""
+    def measure():
+        from portbench.clock import card_backlog
+        live, pairs = rec["live"], []
+        for _ in range(PACED_PAIRS):
+            batch = live.next_batch()
+
+            def forward_backward():
+                live.opt.zero_grad()
+                live.loss_fn(live.model, batch).backward()
+            kept = [b.clone() for b in live.model.buffers()]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            forward_backward()
+            end.record()
+            live.opt.synchronize()
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                for b, k in zip(live.model.buffers(), kept):
+                    b.copy_(k)
+            own = card_backlog(forward_backward)
+            live.opt.synchronize()
+            torch.cuda.synchronize()
+            pairs.append({"paced_ms": start.elapsed_time(end),
+                          "own_ms": own["device_ms"],
+                          "own_exact": own["device_ms_exact"]})
+        rec["log"]("paced pairs: " + json.dumps(pairs))
+        return pairs
+    return probe(rec, "paced_pairs", measure)
 
 
 def read_metrics(rec: dict, per_layer: list, log) -> dict:
